@@ -4,17 +4,21 @@ The JAX package beside it is the reference; each module here has the
 same name as its counterpart there. This package imports ``torch`` and
 ``numpy`` only. Devices are explicit: ``HNSW(..., device=...)`` and
 ``FlatIndex(..., device=...)`` take one, and nothing picks CUDA or CPU by
-itself. The one hand-written kernel (``csrc/group_min.cu``) is compiled
-with ``nvcc`` at first use into ``build/torch_kernels/``.
+itself. The hand-written kernels (``csrc/*.cu``) are compiled with
+``nvcc`` at first use into ``build/torch_kernels/`` (``ops.cuda_build``).
 
 Layer map:
 - ``ops``    — quantization, distances, (d2, id) ordering, the group-min
-  kernel and its plain version, k-center cover
-- ``graphs`` — layered dense adjacency
-- ``store``  — quantized point storage
-- ``search`` — the lockstep flagged beam and pivot-seeded serving
-- ``build_cluster`` / ``build`` / ``heuristic`` — the cluster-bulk builder
+  and all-pairs L2 kernels with their plain versions, k-center cover
+- ``graphs`` — layered dense adjacency with in-degree ledgers
+- ``store``  — quantized point storage with poisoned capacity rows
+- ``search`` — the lockstep flagged beam, hierarchical descent and
+  pivot-seeded serving
+- ``build`` / ``heuristic`` / ``build_cluster`` — the wave builder and
+  the cluster-bulk builder
 - ``models`` — ``HNSW`` and ``FlatIndex``
+- ``utils``  — seeded datasets, GloVe loading and exact brute force;
+  ``eval_glove`` is the CLI
 """
 
 from .models.flat import FlatIndex

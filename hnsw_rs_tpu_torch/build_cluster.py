@@ -355,12 +355,14 @@ def _any_orphan(adj, indeg) -> bool:
     return bool((((adj >= 0).sum(dim=1) > 0) & (indeg == 0)).any())
 
 
-def _orphan_repair(adj, indeg, round_: int = 0):
+def _orphan_fix(adj, indeg, round_: int = 0):
     """One global orphan-repair pass, in place: every connected node
     (outdeg > 0) with indeg == 0 is written into an out-neighbor's worst
     slot, ranked so colliding orphans take distinct slots. ``round_``
     picks which out-neighbor (slot ``round_``, else slot 0), so repeated
-    rounds spread collisions over distinct targets."""
+    rounds spread collisions over distinct targets. Returns the rows
+    written and each one's position in the target-sorted orphan order
+    (the wave builder repacks the first ``_FIX_CAP`` of them)."""
     n, cap = adj.shape
     dev = adj.device
     outdeg = (adj >= 0).sum(dim=1)
@@ -369,8 +371,7 @@ def _orphan_repair(adj, indeg, round_: int = 0):
     tchoice = torch.where(alt >= 0, alt, adj[:, 0])
     tfix = torch.where(orphan, tchoice, n)
     all_ids = torch.arange(n, device=dev)
-    tfix_s, perm = torch.sort(tfix, stable=True)
-    src_s = perm
+    tfix_s, src_s = torch.sort(tfix, stable=True)
     ffirst = torch.empty(n, dtype=torch.bool, device=dev)
     ffirst[:1] = tfix_s[:1] < n
     ffirst[1:] = (tfix_s[1:] < n) & (tfix_s[1:] != tfix_s[:-1])
@@ -383,6 +384,12 @@ def _orphan_repair(adj, indeg, round_: int = 0):
     indeg.index_add_(0, evicted, torch.full_like(evicted, -1, dtype=indeg.dtype))
     adj[frow, fslot] = src.to(adj.dtype)
     indeg.index_add_(0, src, torch.ones_like(src, dtype=indeg.dtype))
+    return frow, f_ok.nonzero()[:, 0]
+
+
+def _orphan_repair(adj, indeg, round_: int = 0):
+    """:func:`_orphan_fix`, returning the repaired (adj, indeg)."""
+    _orphan_fix(adj, indeg, round_)
     return adj, indeg
 
 

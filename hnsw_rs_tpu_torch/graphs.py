@@ -4,15 +4,23 @@
 Each layer is an ``int32[N, cap]`` tensor whose row ``i`` lists node
 ``i``'s out-neighbors, padded with ``SENTINEL`` (-1); ``cap = 2m`` at
 layer 0 and ``m`` above. Node ``i`` belongs to layer ``l`` iff
-``levels[i] >= l``. The per-edge mutation API of the JAX package is not
-ported yet.
+``levels[i] >= l``. Beside each layer the graph keeps its in-degree
+ledger, ``int32[N]``, which the wave builder updates with every edge it
+writes and reads for its isolate protection. The per-edge mutation API of
+the JAX package is not ported yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ops.topk import SENTINEL
+
+
+def degrees(adj: torch.Tensor) -> torch.Tensor:
+    """Out-degree of every row: count of non-sentinel slots, int32[N]."""
+    return (adj >= 0).sum(dim=-1, dtype=torch.int32)
 
 
 def recount_indeg(adj: torch.Tensor) -> torch.Tensor:
@@ -49,6 +57,19 @@ class LayeredGraph:
                 torch.zeros(self.n, dtype=torch.int32, device=self.device)
             )
 
+    def ensure_nodes(self, n: int) -> None:
+        """Grow every layer's row space to at least ``n`` rows; the new
+        rows are empty, so the in-degree ledgers stay valid zero-padded."""
+        if n <= self.n:
+            return
+        for i, adj in enumerate(self.adjs):
+            pad = adj.new_full((n - adj.shape[0], adj.shape[1]), SENTINEL)
+            self.adjs[i] = torch.cat([adj, pad])
+            d = self._indegs[i]
+            if d is not None:
+                self._indegs[i] = torch.cat([d, d.new_zeros(n - d.shape[0])])
+        self.n = n
+
     def get_layer(self, layer_nb: int) -> torch.Tensor:
         if layer_nb >= len(self.adjs):
             raise IndexError(f"layer {layer_nb} not found")
@@ -68,3 +89,12 @@ class LayeredGraph:
         if self._indegs[layer_nb] is None:
             self._indegs[layer_nb] = recount_indeg(self.adjs[layer_nb])
         return self._indegs[layer_nb]
+
+    def layer_degrees(self, layer_nb: int, levels: np.ndarray) -> np.ndarray:
+        """Out-degrees of the nodes belonging to ``layer_nb``
+        (``HNSW::layer_degrees``, ``hnsw/src/template.rs:158-163``)."""
+        degs = degrees(self.adjs[layer_nb]).cpu().numpy()
+        return degs[np.asarray(levels) >= layer_nb]
+
+    def nb_nodes(self, layer_nb: int, levels: np.ndarray) -> int:
+        return int(np.sum(np.asarray(levels) >= layer_nb))

@@ -1,7 +1,18 @@
-"""The HNSW Algorithm-4 accept chain over a candidate pool (port of
-``_accept_from_pool`` in ``hnsw_rs_tpu/heuristic.py``).
+"""Batched neighbor selection, HNSW Algorithm 4 (port of
+``hnsw_rs_tpu/heuristic.py``), as the insert path uses it
+(``inserter.rs:115-123``, ``extend_cands`` and ``keep_pruned`` true):
 
-Walk a (d2, id)-sorted, deduplicated pool best-first: accept candidate
+1. the candidate pool is the construction beam, extended with every
+   candidate's current neighbors at their true distance to the query,
+   deduplicated and sorted by (dist, id) (:func:`build_candidate_pool`,
+   or :func:`build_candidate_pool_packed` over the packed rows);
+2. the accept chain (:func:`_accept_from_pool`) below.
+
+The pool is ``ef * (1 + cap)`` wide (3,168 per query at ef_cons=96,
+M=16), so its distances are computed in fixed-size chunks of ids or beam
+entries; the JAX package's chunk constants are kept.
+
+Accept chain: walk a (d2, id)-sorted, deduplicated pool best-first: accept candidate
 ``e`` iff ``(d(e, q), id_e) < (min_s d(e, s), id_s*)`` over the already
 selected ``s`` (``results.rs:69-77``), stop at ``m`` accepted; with
 ``keep_pruned``, backfill rejected candidates in pool order up to ``m``
@@ -20,10 +31,105 @@ from __future__ import annotations
 
 import torch
 
-from .ops.topk import INF, PAD_ID, sort_dist_id
-from .search import _gather_vecs
+from .ops.distance import l2sq
+from .ops.topk import INF, PAD_ID, dedup_ids, sort_dist_id
+from .search import _gather_vecs, unpack_rows
 
 _ACCEPT_CHUNK = 128  # G: chunk count vs the [B, G, G] pairwise temp
+_D2_CHUNK = 256  # pool-distance tile: bounds gather temps to [B, 256, d]
+_POOL_PACK_CHUNK = 8  # beam entries decoded per step: [B, 8, cap, d] temps
+
+
+def _chunked_d2(codes, scales, q, ids):
+    """Distances from each query to a wide id set [B, E], ``_D2_CHUNK``
+    ids at a time, so the [B, E, d] gather temp never materializes."""
+    b, e = ids.shape
+    out = torch.empty((b, e), dtype=torch.float32, device=q.device)
+    for lo in range(0, e, _D2_CHUNK):
+        vecs = _gather_vecs(codes, scales, ids[:, lo:lo + _D2_CHUNK])
+        out[:, lo:lo + _D2_CHUNK] = l2sq(q[:, None, :], vecs)
+    return out
+
+
+def _finish_pool(pool_d2, pool_ids, forbid):
+    """Drop the forbidden id, deduplicate, sort by (d2, id)."""
+    if forbid is not None:
+        bad = pool_ids == forbid[:, None]
+        pool_d2 = torch.where(bad, INF, pool_d2)
+        pool_ids = torch.where(bad, PAD_ID, pool_ids)
+    return sort_dist_id(*dedup_ids(pool_d2, pool_ids))
+
+
+def build_candidate_pool(adj, codes, scales, q, cand_d2, cand_ids,
+                         extend: bool, forbid):
+    """Sorted, deduplicated candidate pool [B, C] for the heuristic: the
+    beam (``cand_d2``/``cand_ids`` [B, ef]) and, with ``extend``, every
+    candidate's neighbors with their true distance to ``q``
+    (C = ef + ef*cap)."""
+    if not extend:
+        return _finish_pool(cand_d2, cand_ids, forbid)
+    b, ef = cand_ids.shape
+    safe = torch.where(cand_ids == PAD_ID, 0, cand_ids).clamp(0, adj.shape[0] - 1)
+    nbrs = adj[safe.long()]  # [B, ef, cap]
+    nvalid = ((nbrs >= 0) & (cand_ids != PAD_ID)[:, :, None]).reshape(b, -1)
+    nbrs = nbrs.reshape(b, -1)
+    nd2 = torch.where(nvalid, _chunked_d2(codes, scales, q,
+                                          torch.where(nvalid, nbrs, 0)), INF)
+    nids = torch.where(nvalid, nbrs, PAD_ID)
+    return _finish_pool(torch.cat([cand_d2, nd2], 1),
+                        torch.cat([cand_ids, nids], 1), forbid)
+
+
+def build_candidate_pool_packed(packed, q, cand_d2, cand_ids, extend: bool,
+                                forbid):
+    """:func:`build_candidate_pool` over the packed-neighbor layout
+    (``search.pack_layer``): one row gather per beam entry supplies its
+    neighbors' ids, codes and scales, ``_POOL_PACK_CHUNK`` entries at a
+    time. The same distances as the plain path (the same codes and
+    scales feed the same dequantize and ``l2sq``)."""
+    if not extend:
+        return _finish_pool(cand_d2, cand_ids, forbid)
+    b, ef = cand_ids.shape
+    n, wrow = packed.shape
+    d = q.shape[1]
+    cap = wrow // (d + 12)
+    nbrs = torch.empty((b, ef, cap), dtype=torch.int32, device=q.device)
+    nd2 = torch.empty((b, ef, cap), dtype=torch.float32, device=q.device)
+    for lo in range(0, ef, _POOL_PACK_CHUNK):
+        ch = cand_ids[:, lo:lo + _POOL_PACK_CHUNK].clamp(0, n - 1).long()
+        ids_c, vecs = unpack_rows(packed[ch], cap, d)  # [B, ech, cap(, d)]
+        nbrs[:, lo:lo + _POOL_PACK_CHUNK] = ids_c
+        nd2[:, lo:lo + _POOL_PACK_CHUNK] = l2sq(q[:, None, None, :], vecs)
+    nvalid = ((nbrs >= 0) & (cand_ids != PAD_ID)[:, :, None]).reshape(b, -1)
+    nd2 = torch.where(nvalid, nd2.reshape(b, -1), INF)
+    nids = torch.where(nvalid, nbrs.reshape(b, -1), PAD_ID)
+    return _finish_pool(torch.cat([cand_d2, nd2], 1),
+                        torch.cat([cand_ids, nids], 1), forbid)
+
+
+def select_heuristic(adj, codes, scales, q, cand_d2, cand_ids, m: int,
+                     extend_cands: bool = True, keep_pruned: bool = True,
+                     forbid=None):
+    """Batched Algorithm-4 selection (``searcher.rs:109-153``): the
+    selected neighbors of queries ``q`` [B, d] from the beam ``cand_d2``/
+    ``cand_ids`` [B, ef], as (d2 [B, m], ids [B, m]) in (d2, id) order,
+    (inf, PAD_ID) padded."""
+    pool_d2, pool_ids = build_candidate_pool(adj, codes, scales, q, cand_d2,
+                                             cand_ids, extend_cands, forbid)
+    return _accept_from_pool(codes, scales, q, pool_d2, pool_ids, m,
+                             keep_pruned)
+
+
+def select_heuristic_packed(packed, codes, scales, q, cand_d2, cand_ids,
+                            m: int, extend_cands: bool = True,
+                            keep_pruned: bool = True, forbid=None):
+    """:func:`select_heuristic` with the extend pool built from the packed
+    rows; the same results."""
+    pool_d2, pool_ids = build_candidate_pool_packed(packed, q, cand_d2,
+                                                    cand_ids, extend_cands,
+                                                    forbid)
+    return _accept_from_pool(codes, scales, q, pool_d2, pool_ids, m,
+                             keep_pruned)
 
 
 def _pairwise_d2(a: torch.Tensor, an: torch.Tensor, b: torch.Tensor,

@@ -14,99 +14,36 @@ Exact top-k in two passes, as in the JAX package:
    sorted by (d2, id). The margin absorbs ulp-level disagreement between
    the kernel's sums and the rescoring product at the k-th boundary.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/torch_kernels/`` under the checkout, keyed on a hash of its
-source, and loaded with ``ctypes``.
+The kernel is built and loaded by :mod:`.cuda_build`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from . import cuda_build
 from .distance import pairwise_l2sq_mxu
 from .topk import INF, PAD_ID, sort_dist_id
 
 GROUP = 128
 _MARGIN = 8  # extra groups rescored in pass 2 (ulp safety at the boundary)
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "group_min.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_MAX_DIM = 768  # keeps the staged query tile inside one block's shared memory
-
-_lib = None
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    home = os.environ.get("CUDA_HOME") or CUDA_HOME
-    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-        return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return found
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def build() -> Path:
-    """Compile ``csrc/group_min.cu`` for sm_90a unless a library built from
-    the same source exists; returns the library path. The compiler's
-    output, ``-Xptxas -v`` register and shared-memory report included, is
-    kept beside it with a ``.log`` suffix."""
-    src = _SRC.read_bytes()
-    out = BUILD_DIR / f"group_min_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(_SRC),
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.group_min_d2_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    """Compile ``csrc/group_min.cu`` unless its library exists; returns
+    the library path (the compiler's report sits beside it, ``.log``)."""
+    return cuda_build.build("group_min")[0]
 
 
 def _check(q, codes, scales, normsq) -> None:
-    if q.dim() != 2 or codes.dim() != 2 or q.shape[1] != codes.shape[1]:
-        raise ValueError(f"shapes q {tuple(q.shape)}, codes {tuple(codes.shape)}")
-    n = codes.shape[0]
-    if tuple(scales.shape) != (n, 2) or tuple(normsq.shape) != (n,):
-        raise ValueError("scales must be [N, 2] and normsq [N]")
-    if n % GROUP:
-        raise ValueError(f"N={n} is not a multiple of {GROUP}")
-    for name, t, dt in (("q", q, torch.float32), ("codes", codes, torch.uint8),
-                        ("scales", scales, torch.float32),
-                        ("normsq", normsq, torch.float32)):
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    cuda_build.check_inputs(q, codes, scales, normsq)
+    if codes.shape[0] % GROUP:
+        raise ValueError(f"N={codes.shape[0]} is not a multiple of {GROUP}")
 
 
 def group_min_d2(
@@ -122,12 +59,8 @@ def group_min_d2(
     _check(q, codes, scales, normsq)
     if q.device.type == "cpu":
         return group_min_d2_plain(q, codes, scales, normsq)
-    if q.device.type != "cuda":
-        raise ValueError(f"no group_min_d2 kernel for device {q.device}")
     b, d = q.shape
     n = codes.shape[0]
-    if d > _MAX_DIM:
-        raise ValueError(f"d={d} exceeds the kernel's limit of {_MAX_DIM}")
     if -(-(n // GROUP) // 8) > 65535:
         raise ValueError(f"N={n} exceeds the kernel's grid limit")
     out_d = torch.empty((b, n // GROUP), dtype=torch.float32, device=q.device)
@@ -136,16 +69,12 @@ def group_min_d2(
         return out_d, out_i
     qsq = (q * q).sum(dim=-1)
     qsum = q.sum(dim=-1)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.group_min_d2_launch(
-            q.data_ptr(), qsq.data_ptr(), qsum.data_ptr(), codes.data_ptr(),
-            scales.data_ptr(), normsq.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), b, n, d, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"group_min_d2 kernel launch failed: CUDA error {rc}")
+    cuda_build.launch(
+        "group_min", "group_min_d2_launch", _ARGTYPES, q.device,
+        q.data_ptr(), qsq.data_ptr(), qsum.data_ptr(), codes.data_ptr(),
+        scales.data_ptr(), normsq.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), b, n, d,
+    )
     group_min_d2.launches += 1
     return out_d, out_i
 

@@ -1,5 +1,6 @@
-"""Batched lockstep graph traversal (port of ``hnsw_rs_tpu/search.py``,
-the pivot-seeded layer-0 serving path).
+"""Batched lockstep graph traversal (port of ``hnsw_rs_tpu/search.py``):
+the hierarchical descent, the layer beam and the pivot-seeded layer-0
+serving path.
 
 A whole batch of queries traverses layer 0 in lockstep. Each query keeps
 one sorted **flagged beam**, fixed ``ef``-wide tensors ``(d2, id,
@@ -11,8 +12,10 @@ evicted from the top-ef can never re-enter it, so a rediscovered node
 costs one wasted distance row at worst.
 
 Only one entry is expanded per iteration (E=1, the reference's exact
-pop-one semantics); the E>1 serving mode, the PQ and probed layouts and
-the hierarchical descent are not ported yet.
+pop-one semantics); the E>1 serving mode and the PQ and probed layouts
+are not ported yet. The JAX package's ``while_loop``s are Python loops
+here, with one host read of the convergence flag per iteration and the
+same iteration bounds.
 """
 
 from __future__ import annotations
@@ -54,6 +57,43 @@ def _unpack_exp_id(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     pad = packed == PAD_ID
     ids = torch.where(pad, PAD_ID, packed >> 1)
     return ids, pad | ((packed & 1) == 1)
+
+
+def _row_min_dist_id(d2: torch.Tensor, ids: torch.Tensor):
+    """(min d2, min id among the argmins) along the last axis: the
+    (dist, id)-order minimum."""
+    min_d2 = d2.amin(dim=-1)
+    min_id = torch.where(d2 == min_d2[..., None], ids, PAD_ID).amin(dim=-1)
+    return min_d2, min_id
+
+
+def greedy_descent(adj: torch.Tensor, codes: torch.Tensor,
+                   scales: torch.Tensor, q: torch.Tensor,
+                   cur_d2: torch.Tensor, cur_ids: torch.Tensor,
+                   forbid: torch.Tensor | None = None, max_iters: int = 128):
+    """Batched ef=1 layer traversal, a strict-improvement hill climb
+    (``search_layer`` with ef = 1, ``searcher.rs:23-103``): move to the
+    neighbor nearest to ``q`` iff it is strictly better than the current
+    node under the (dist, id) order. Used for the upper-layer descent of
+    queries (``template.rs:322-324``) and inserts (``inserter.rs:70-89``).
+    ``forbid`` [B]: an id never to move to (a node must not route through
+    itself while it is inserted). Strict improvement cannot cycle;
+    ``max_iters`` is a safety bound. Returns (cur_d2 [B], cur_ids [B])."""
+    n = codes.shape[0]
+    for _ in range(max_iters):
+        nbrs = adj[cur_ids.clamp(0, n - 1).long()]
+        valid = nbrs >= 0
+        if forbid is not None:
+            valid = valid & (nbrs != forbid[:, None])
+        d2 = torch.where(valid, l2sq(q[:, None, :],
+                                     _gather_vecs(codes, scales, nbrs)), INF)
+        best_d2, best_id = _row_min_dist_id(d2, torch.where(valid, nbrs, PAD_ID))
+        better = (best_d2 < cur_d2) | ((best_d2 == cur_d2) & (best_id < cur_ids))
+        cur_d2 = torch.where(better, best_d2, cur_d2)
+        cur_ids = torch.where(better, best_id, cur_ids)
+        if not bool(better.any()):
+            break
+    return cur_d2, cur_ids
 
 
 def init_beam(entry_d2: torch.Tensor, entry_ids: torch.Tensor, ef: int):
@@ -167,6 +207,24 @@ def pack_layer(adj: torch.Tensor, codes: torch.Tensor,
     return out
 
 
+def comb_table(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Combined per-point byte table ``u8[N, d+8]`` = ``codes ‖
+    f32-bytes(scales)``: one gather fetches a point's code and scale
+    bytes together (the build's incremental repack)."""
+    n = codes.shape[0]
+    return torch.cat([codes, scales.contiguous().view(torch.uint8).view(n, 8)],
+                     dim=1)
+
+
+def empty_packed(n: int, cap: int, d: int,
+                 device: torch.device | str) -> torch.Tensor:
+    """Packed table of an all-empty layer: id bytes 0xFF (SENTINEL),
+    code and scale bytes zero (masked by the ids at decode)."""
+    out = torch.zeros((n, cap * (d + 12)), dtype=torch.uint8, device=device)
+    out[:, cap * (d + 8):] = 255
+    return out
+
+
 def unpack_rows(row: torch.Tensor, cap: int, d: int):
     """Decode packed rows (any leading shape) into (neighbor ids
     [..., cap], dequantized vectors f32[..., cap, d])."""
@@ -237,4 +295,50 @@ def ann_search_seeded_plain(adj0: torch.Tensor, codes: torch.Tensor,
     e_d2, e_ids, _ = _pivot_seeds_pos(pivot_ids, pivot_vecs, q, ef)
     beam_d2, beam_ids = search_layer(adj0, codes, scales, q, e_d2, e_ids, ef,
                                      max_iters)
+    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+
+
+def seed_entry(codes: torch.Tensor, scales: torch.Tensor, q: torch.Tensor,
+               ep: int):
+    """Distance of every query to the global entry point, the search seed
+    (``template.rs:316-319`` / ``inserter.rs:53-68``): (d2 [B, 1],
+    ids [B, 1])."""
+    ep_ids = torch.full((q.shape[0],), int(ep), dtype=torch.int32,
+                        device=q.device)
+    d2 = l2sq(q, _gather_vecs(codes, scales, ep_ids))
+    return d2[:, None], ep_ids[:, None]
+
+
+def _descend(adjs_upper, codes, scales, q, ep):
+    """Seed at the entry point and greedy-descend layers top..1
+    (``adjs_upper`` ordered bottom-up); returns the layer-0 entry."""
+    entry_d2, entry_ids = seed_entry(codes, scales, q, ep)
+    cur_d2, cur_ids = entry_d2[:, 0], entry_ids[:, 0]
+    for adj in reversed(adjs_upper):
+        cur_d2, cur_ids = greedy_descent(adj, codes, scales, q, cur_d2, cur_ids)
+    return cur_d2[:, None], cur_ids[:, None]
+
+
+def ann_search(adjs, codes: torch.Tensor, scales: torch.Tensor,
+               q: torch.Tensor, ep: int, ef: int, k: int, max_iters: int):
+    """The full batched query pipeline (``HNSW::ann_by_vector``,
+    ``template.rs:306-335``): seed at the entry point, greedy descent
+    through layers top..1, a width-``ef`` beam at layer 0. ``adjs`` is
+    ordered layer 0 first; ``codes`` may be the dequantized f32 table.
+    Returns (sqrt(d2) [B, k], ids [B, k])."""
+    e_d2, e_ids = _descend(adjs[1:], codes, scales, q, ep)
+    beam_d2, beam_ids = search_layer(adjs[0], codes, scales, q, e_d2, e_ids,
+                                     ef, max_iters)
+    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+
+
+def ann_search_packed(adjs_upper, packed0: torch.Tensor, codes: torch.Tensor,
+                      scales: torch.Tensor, q: torch.Tensor, ep: int, ef: int,
+                      k: int, max_iters: int):
+    """:func:`ann_search` with the layer-0 beam over the packed rows
+    (``adjs_upper`` = layers 1.. ordered bottom-up; the descent stays on
+    plain gathers). The same results as :func:`ann_search`."""
+    e_d2, e_ids = _descend(adjs_upper, codes, scales, q, ep)
+    beam_d2, beam_ids = search_layer_packed(packed0, q, e_d2, e_ids, ef,
+                                            max_iters)
     return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]

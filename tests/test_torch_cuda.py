@@ -1,6 +1,8 @@
-"""Tests of the port that need an NVIDIA GPU: the sm_90a group-min kernel
-against its plain version, and the port's device paths against its own
-CPU paths. Every test is marked ``cuda`` and skips without a card.
+"""Tests of the port that need an NVIDIA GPU: the sm_90a group-min (K2)
+and all-pairs L2 (K1) kernels against their plain versions, and the
+port's device paths (cluster and wave builds, serving, inserts) against
+its own CPU paths. Every test is marked ``cuda`` and skips without a
+card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -9,7 +11,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
 Tolerances: group rows and top-k ids equal; d2 within rtol 1e-5 plus
 2e-6 of |q|^2 + |x|^2 (the kernel and cuBLAS may sum the q.c products in
 different orders, and the affine form's error scales with the terms it
-cancels).
+cancels); K1 within 2e-6 of |q|^2 + |x|^2. Graphs built on the card and
+on the CPU are held to recall@10 within 0.01 of each other.
 """
 
 import numpy as np
@@ -17,10 +20,11 @@ import pytest
 import torch
 
 from hnsw_rs_tpu_torch import HNSW
-from hnsw_rs_tpu_torch.ops import groupmin
+from hnsw_rs_tpu_torch.ops import groupmin, l2_kernel
 from hnsw_rs_tpu_torch.ops.distance import point_normsq
 from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
 from hnsw_rs_tpu_torch.utils.datasets import synthetic_clustered
+from hnsw_rs_tpu_torch.utils.glove import brute_force_nns
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +113,66 @@ def test_port_serves_the_same_on_card_as_on_cpu(dev):
     _, bi = built.ann_batch(ds.test, 10, 48)
     recall = np.mean([len(set(a) & set(t)) / 10 for a, t in zip(bi, ci)])
     assert recall >= 0.95
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("n,d,b", [(300, 50, 70), (70_001, 96, 1030),
+                                   (1, 7, 1), (5_000, 200, 129)])
+def test_l2_kernel_matches_plain(dev, n, d, b, fast):
+    q, codes, scales, normsq = _collection(dev, n, d, b, seed=n + d)
+    before = l2_kernel.pairwise_l2sq_kernel.launches
+    k = l2_kernel.pairwise_l2sq_kernel(q, codes, scales, normsq, fast)
+    p = l2_kernel.pairwise_l2sq_plain(q, codes, scales, normsq, fast)
+    torch.cuda.synchronize()
+    assert l2_kernel.pairwise_l2sq_kernel.launches == before + 1
+    assert k.shape == (b, n) and k.dtype == torch.float32
+    mag = (q * q).sum(dim=1, keepdim=True) + normsq[None, :]
+    assert bool(((k - p).abs() <= 2e-6 * mag).all())
+    assert bool((k >= 0).all())
+
+
+def test_l2_kernel_rejects_mixed_devices_and_dtypes(dev):
+    q, codes, scales, normsq = _collection(dev, 1024, 16, 4, seed=2)
+    with pytest.raises(ValueError, match="is on"):
+        l2_kernel.pairwise_l2sq_kernel(q, codes.cpu(), scales, normsq)
+    with pytest.raises(ValueError, match="is on"):
+        l2_kernel.pairwise_l2sq_kernel(q.cpu(), codes, scales, normsq)
+    with pytest.raises(TypeError, match="q must be"):
+        l2_kernel.pairwise_l2sq_kernel(q.half(), codes, scales, normsq)
+    with pytest.raises(TypeError, match="codes must be"):
+        l2_kernel.pairwise_l2sq_kernel(q, codes.float(), scales, normsq)
+    with pytest.raises(ValueError, match="contiguous"):
+        l2_kernel.pairwise_l2sq_kernel(q.T.contiguous().T, codes, scales, normsq)
+    wide = torch.zeros((2, 800), device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        l2_kernel.pairwise_l2sq_kernel(
+            wide, torch.zeros((3, 800), dtype=torch.uint8, device=dev),
+            scales[:3].contiguous(), normsq[:3].contiguous())
+
+
+def test_wave_build_on_card_matches_cpu(dev):
+    """A 20k-point wave build (packed) on the card and the same build on
+    the CPU clear the same recall; inserts on the card serve through the
+    plain hierarchical branch."""
+    ds = synthetic_clustered(20_000, 32, n_queries=256, seed=5)
+    built = {}
+    for where in ("cpu", dev):
+        idx = HNSW(12, ef_cons=48, dim=32, device=where)
+        idx.insert_bulk(ds.train)
+        assert idx.serving_route() == "packed"
+        built[str(where)] = idx
+    card, cpu = built[str(dev)], built["cpu"]
+    truth = brute_force_nns(ds.test, cpu.points.codes, cpu.points.scales, 10)
+    rec = {}
+    for name, idx in built.items():
+        _, ids = idx.ann_batch(ds.test, 10, 64)
+        rec[name] = np.mean([len(set(a) & set(t)) / 10 for a, t in zip(ids, truth)])
+    assert rec[str(dev)] >= 0.95 and abs(rec[str(dev)] - rec["cpu"]) <= 0.01, rec
+    assert card.assert_param_compliance(verbose=False)
+    same = (card.graph.get_layer(0).cpu() == cpu.graph.get_layer(0)).all(1)
+    print(f"share of identical layer-0 rows, card vs cpu: {float(same.float().mean()):.4f}")
+    for x in ds.test[:64]:
+        card.insert_vec(x)
+    assert card.serving_route() == "plain"
+    _, ids = card.ann_batch(ds.test[:64], 10, 64)
+    assert np.mean([20_000 + i in row for i, row in enumerate(ids)]) >= 0.95

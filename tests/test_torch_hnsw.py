@@ -17,7 +17,7 @@ import pytest
 
 from hnsw_rs_tpu import HNSW as JHNSW
 from hnsw_rs_tpu.models.flat import FlatIndex as JFlatIndex
-from hnsw_rs_tpu_torch import FlatIndex, HNSW
+from hnsw_rs_tpu_torch import FlatIndex, HNSW, Params
 from hnsw_rs_tpu_torch.utils.datasets import synthetic_clustered
 
 N, D, K, EF = 4000, 32, 10, 48
@@ -124,15 +124,24 @@ def test_cross_load_both_directions(built, tmp_path):
 
 
 def test_unported_routes_raise(built):
+    """What the port does not carry yet raises: PQ serving, E>1
+    construction, wave_sort, build_seeded and the cosine metric. A
+    cluster-built index without pivots now serves through hierarchical
+    descent, and extending it wave-inserts."""
     ds, _, tidx, _ = built
     with pytest.raises(NotImplementedError):
-        tidx.insert_bulk(ds.train[:10], cluster_build=True)
-    with pytest.raises(NotImplementedError):
         tidx.finalize(pivots=256, pq_m=8)
+    for kw in ({"build_expand": 2}, {"wave_sort": True}, {"build_seeded": True}):
+        with pytest.raises(NotImplementedError):
+            HNSW(8, dim=D, device="cpu").insert_bulk(ds.train[:100], **kw)
+    with pytest.raises(NotImplementedError, match="metric"):
+        HNSW(8, params=Params(m=8, dim=D, metric="cosine"), device="cpu")
     plain = HNSW(8, dim=D, device="cpu")
     plain.insert_bulk(ds.train[:500], cluster_build=True)
     plain.finalize(pivots=0)
-    with pytest.raises(NotImplementedError, match="pivots"):
-        plain.ann_batch(ds.test[:4], K, EF)
-    with pytest.raises(NotImplementedError, match="wave builder"):
-        HNSW(8, dim=D, device="cpu").insert_bulk(ds.train[:100])
+    assert plain.serving_route() == "packed"
+    _, ids = plain.ann_batch(ds.train[:20], K, EF)
+    assert np.mean(ids[:, 0] == np.arange(20)) >= 0.95
+    plain.insert_bulk(ds.train[500:600], cluster_build=True)
+    assert len(plain) == 600 and plain.serving_route() == "plain"
+    assert plain.assert_param_compliance(verbose=False)
