@@ -7,16 +7,20 @@ Phases, one line each with its time:
 1. device: requires CUDA, prints the card's name and power limit and pins
    float32 matrix products (both TF32 switches off);
 2. build: compiles every kernel from ``hnsw_rs_tpu_torch/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together, and counts the tensor-core
+   instructions (``IGMMA``/``HGMMA``/``IMMA``) in each library's SASS;
 3. kernel vs plain on the card: ``group_min_d2`` (K2) against
-   ``group_min_d2_plain`` at B=256, N=262,144, d=96 (rows equal, d2
-   within rtol 1e-5), ``flat_topk_fused`` both ways (ids equal), and
+   ``group_min_d2_plain`` at B=256, N=262,144, d=96 (d2 within
+   1e-5 * d2 + 2e-6 * (|q|^2 + |x|^2), rows equal except ties inside that
+   bound, counted), ``flat_topk_fused`` both ways (ids equal), and
    quantization codes on the card equal to the CPU's;
 4. ``pairwise_l2sq_kernel`` (K1), the counterpart of the JAX package's
    ``pairwise_l2sq_pallas``, through its own entry point at B=1,024,
    N=1M, d=96; that output and a ``fast=True`` one, each whole, against
    ``pairwise_l2sq_plain`` on the same inputs, and the same at the
-   unaligned B=70, N=300, d=50: error within 2e-6 of |q|^2 + |x|^2;
+   unaligned B=70, N=300, d=50: error within 2e-6 of |q|^2 + |x|^2; and
+   ``torch.cdist`` on the dequantized points timed beside it as a
+   yardstick (the port never calls it);
 5. the cluster path at ``bench.py``'s configuration: a cluster-bulk build
    of N=1M, d=96 synthetic clustered points (M=24, ef_cons=128),
    ``finalize(pivots=16384)``, exact ground truth for 4,096 queries
@@ -35,7 +39,12 @@ Phases, one line each with its time:
 7. ``python -m hnsw_rs_tpu_torch.eval_glove --device cuda`` on the
    bundled ``test-data``: the GloVe gate on the card.
 
-It prints the kernels' JSON line, then as its last line
+After the two paths, K2 again at the main path's shape (B=4,096,
+N=1,000,064) against its plain version, with ``flat_topk_fused`` ids
+held equal to the plain route's there too. It prints the kernels' JSON
+line (each kernel's time, plain and library times, the least time the
+card could take for the same work, and its launches on each path), then
+as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the exit
 code is then not 0; without a CUDA device it exits non-zero at once.
 """
@@ -56,6 +65,11 @@ N, D, K, M, EF_CONS, NQ, NQ_RECALL, PIVOTS = (
 WAVE_N, WAVE_M, WAVE_EF_CONS, N_INSERT = N, 16, 96, 2048
 WAVE_LADDER = [16, 24, 32, 48, 64, 96, 128, 192, 256]
 K1_B, K1_TOL = 1024, 2e-6  # K1 error bound, relative to |q|^2 + |x|^2
+# K2: d2 within K2_RTOL * d2 + K1_TOL * (|q|^2 + |x|^2); rows equal but for ties
+K2_RTOL = 1e-5
+# H100 SXM peaks (NVIDIA's data sheet): int8 dense tensor rate, f32 CUDA-core
+# rate, memory rate; the kernels' products are int8, one per query limb
+INT8_OPS, F32_FLOPS, MEM_BPS = 1979e12, 67e12, 3.35e12
 CLUSTER_KWARGS = {"pool_p": 96, "points_per_cluster": 96, "fanout": 5,
                   "select_alg4": False, "merge_slots": 48}
 # cheapest (ef, max_iters) first, as bench.py:184-188
@@ -131,6 +145,52 @@ def timed_qps(index, queries, ef, max_iters=None):
     return len(queries) * reps / (time.perf_counter() - ts), reps
 
 
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the int8 tensor work over its
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / INT8_OPS * 1e3, nbytes / MEM_BPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k2_check(q, codes, scales, normsq, kd, ki, pd, pi):
+    """Holds K2's group minima (kd, ki) to the plain version's (pd, pi):
+    d2 within K2_RTOL * d2 + K1_TOL * (|q|^2 + |x|^2), and a row that
+    differs must be a tie, the plain d2 of both rows inside that bound.
+    Returns (rows that differ, max abs d2 error); raises otherwise."""
+    mag = (q * q).sum(dim=1, keepdim=True) + normsq[ki.long()]
+    tol = K2_RTOL * pd.abs() + K1_TOL * mag
+    err = (kd - pd).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"group_min_d2 d2 off by up to {float(err.max())}")
+    diff = ki != pi
+    bs = diff.nonzero()[:, 0]
+
+    def plain_d2(rows):
+        r = rows.long()
+        dot = (q[bs] * codes[r].float()).sum(dim=1)
+        qdotx = scales[r, 1] * dot + scales[r, 0] * q[bs].sum(dim=1)
+        return torch.clamp_min((q[bs] * q[bs]).sum(dim=1) + normsq[r] - 2.0 * qdotx, 0.0)
+
+    gap = (plain_d2(ki[diff]) - plain_d2(pi[diff])).abs()
+    if not bool((gap <= tol[diff]).all()):
+        raise AssertionError(f"group_min_d2 rows differ outside ties: "
+                             f"{int((gap > tol[diff]).sum())} groups")
+    return int(diff.sum()), float(err.max())
+
+
+def sass_counts(lib):
+    """Tensor-core instructions in the library's SASS (cuobjdump): int8
+    warpgroup products (IGMMA), other warpgroup products (HGMMA) and warp
+    products (IMMA)."""
+    from hnsw_rs_tpu_torch.ops import cuda_build
+
+    nvcc = cuda_build._nvcc()
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: sass.count(op) for op in ("IGMMA", "HGMMA", "IMMA")}
+
+
 def k1_check(out, plain, q, codes, scales, normsq, fast):
     """Max abs error of K1's output ``out`` against its plain version
     ``plain`` on the same inputs, whole, and the max relative to
@@ -167,6 +227,7 @@ def main():
     from hnsw_rs_tpu_torch.build import _insert_wave_fused_impl
     from hnsw_rs_tpu_torch.ops import cuda_build, groupmin, l2_kernel
     from hnsw_rs_tpu_torch.ops.distance import point_normsq
+    from hnsw_rs_tpu_torch.ops.limbs import N_LIMBS, padded_dim
     from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
     from hnsw_rs_tpu_torch.search import (
         _descend, _pivot_seeds_pos, comb_table, search_layer_packed)
@@ -174,11 +235,17 @@ def main():
     t0 = phase("device", t0, kind=repr(kind))
 
     libs = cuda_build.build("group_min", "l2_kernel")
+    tensor_ops = {}
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "C75" in line and "C7519" not in line:
                 print(f"  ptxas {lib.name}:", line.strip())
-    t0 = phase("build", t0, libraries=",".join(lib.name for lib in libs))
+        ops = tensor_ops[lib.name] = sass_counts(lib)
+        print(f"  sass {lib.name}:", json.dumps(ops), flush=True)
+        if ops["IGMMA"] + ops["IMMA"] == 0:
+            raise AssertionError(f"{lib.name} has no int8 tensor-core instruction")
+    t0 = phase("build", t0, libraries=",".join(lib.name for lib in libs),
+               tensor_core_instructions=json.dumps(tensor_ops).replace(" ", ""))
 
     ds = synthetic_clustered(N, D, n_queries=NQ, seed=42)
     t0 = phase("data", t0, n=N, d=D, queries=NQ)
@@ -191,11 +258,7 @@ def main():
     kd, ki = groupmin.group_min_d2(q, codes, scales, normsq)
     pd, pi = groupmin.group_min_d2_plain(q, codes, scales, normsq)
     torch.cuda.synchronize()
-    max_err = float((kd - pd).abs().max())
-    if not torch.equal(ki, pi):
-        raise AssertionError(f"group_min_d2 rows differ in {int((ki != pi).sum())} groups")
-    if not torch.allclose(kd, pd, rtol=1e-5, atol=0.0):
-        raise AssertionError(f"group_min_d2 d2 off by up to {max_err}")
+    ties, max_err = k2_check(q, codes, scales, normsq, kd, ki, pd, pi)
     ms_k = cuda_ms(lambda: groupmin.group_min_d2(q, codes, scales, normsq), 20)
     ms_p = cuda_ms(lambda: groupmin.group_min_d2_plain(q, codes, scales, normsq), 20)
     fd, fi = groupmin.flat_topk_fused(q, codes, scales, normsq, K)
@@ -219,6 +282,7 @@ def main():
         raise AssertionError("quantize on the card differs from the CPU")
     del x, codes, scales, normsq, kd, pd, gd
     t0 = phase("kernel_vs_plain", t0, B=256, N=262144, max_abs_err=max_err,
+               row_ties=ties,
                group_min_ms=f"{ms_k:.4f}", plain_ms=f"{ms_p:.4f}",
                flat_topk_ms=f"{ms_fk:.4f}", flat_topk_plain_ms=f"{ms_fp:.4f}",
                quantize_100k_equal=True)
@@ -251,6 +315,13 @@ def main():
         ms_k1p = cuda_ms(lambda: plain(q, codes, scales, normsq, fast), 5)
         torch.cuda.empty_cache()
         k1[fast] = (abs_e, rel_e, ms_k1, ms_k1p)
+    xd = dequantize(codes, scales)  # outside the timed window
+    ms_k1_lib = cuda_ms(lambda: torch.cdist(
+        q, xd, compute_mode="use_mm_for_euclid_dist"), 5)
+    del xd
+    torch.cuda.empty_cache()
+    k1_bound = bound(2 * K1_B * N * padded_dim(D) * N_LIMBS,
+                     K1_B * D * 4 + N * (D + 12) + K1_B * N * 4)
     rng = np.random.default_rng(0)
     cs, ss = quantize(torch.from_numpy(rng.random((300, 50), np.float32)).to(dev))
     qs = dequantize(*quantize(torch.from_numpy(rng.random((70, 50), np.float32)).to(dev)))
@@ -266,10 +337,12 @@ def main():
                rel_err_70x300x50=f"{max(v[1] for v in small):.3e}",
                max_abs_err=k1_abs, ms=f"{k1[False][2]:.4f}",
                plain_ms=f"{k1[False][3]:.4f}", ms_fast=f"{k1[True][2]:.4f}",
-               plain_ms_fast=f"{k1[True][3]:.4f}")
+               plain_ms_fast=f"{k1[True][3]:.4f}", library_ms=f"{ms_k1_lib:.4f}",
+               bound_ms=f"{k1_bound[0]:.4f}", bound_by=k1_bound[1],
+               f32_bound_ms=f"{2 * K1_B * N * D / F32_FLOPS * 1e3:.4f}")
 
     # -- main path -------------------------------------------------------------
-    groupmin.group_min_d2.launches = 0
+    groupmin.group_min_d2.launches = kern.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     index = HNSW(M, ef_cons=EF_CONS, dim=D, device=dev)
     index.insert_bulk(ds.train, cluster_build=True, cluster_kwargs=CLUSTER_KWARGS)
@@ -322,6 +395,7 @@ def main():
 
     qps, reps = timed_qps(index, ds.test, ef, mi)
     launches = groupmin.group_min_d2.launches
+    cluster_k1 = kern.launches
     if launches < 1:
         raise AssertionError("the main path never launched group_min_d2")
 
@@ -355,23 +429,30 @@ def main():
     kd, ki = groupmin.group_min_d2(qg, cg, sg, ng)
     pd, pi = groupmin.group_min_d2_plain(qg, cg, sg, ng)
     torch.cuda.synchronize()
-    err_main = float((kd - pd).abs().max())
-    rows_equal = bool(torch.equal(ki, pi))
-    if not (rows_equal and torch.allclose(kd, pd, rtol=1e-5, atol=0.0)):
-        raise AssertionError(f"group_min_d2 at B=4096, N=1M: rows equal "
-                             f"{rows_equal}, max abs err {err_main}")
-    del kd, pd
+    ties_main, err_main = k2_check(qg, cg, sg, ng, kd, ki, pd, pi)
+    rd, ri = groupmin.rescore_groups(qg, cg, sg, ng, pd, pi, K, N)
+    fd, fi = groupmin.flat_topk_fused(qg, flat.codes, flat.scales, flat._normsq, K)
+    if not torch.equal(fi, ri):
+        raise AssertionError("flat_topk_fused ids at B=4096, N=1M differ from "
+                             "the plain route")
+    del kd, pd, rd, fd
     ms_main = cuda_ms(lambda: groupmin.group_min_d2(qg, cg, sg, ng), 5)
     ms_main_plain = cuda_ms(lambda: groupmin.group_min_d2_plain(qg, cg, sg, ng), 5)
-    t0 = phase("kernel_main_shape", t0, B=NQ_RECALL, N=int(cg.shape[0]),
-               max_abs_err=err_main, ms=f"{ms_main:.4f}",
-               plain_ms=f"{ms_main_plain:.4f}")
+    n_pad = int(cg.shape[0])
+    k2_bound = bound(2 * NQ_RECALL * n_pad * padded_dim(D) * N_LIMBS,
+                     NQ_RECALL * D * 4 + n_pad * (D + 12)
+                     + NQ_RECALL * (n_pad // groupmin.GROUP) * 8)
+    t0 = phase("kernel_main_shape", t0, B=NQ_RECALL, N=n_pad,
+               max_abs_err=err_main, row_ties=ties_main, topk_ids_equal=True,
+               ms=f"{ms_main:.4f}", plain_ms=f"{ms_main_plain:.4f}",
+               bound_ms=f"{k2_bound[0]:.4f}", bound_by=k2_bound[1],
+               f32_bound_ms=f"{2 * NQ_RECALL * n_pad * D / F32_FLOPS * 1e3:.4f}")
 
     del qg, cg, sg, ng, index
     torch.cuda.empty_cache()
 
     # -- the wave path: wave build, hierarchical serving, inserts ----------------
-    groupmin.group_min_d2.launches = 0
+    groupmin.group_min_d2.launches = kern.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     wave = HNSW(WAVE_M, ef_cons=WAVE_EF_CONS, dim=D, device=dev)
     wave.insert_bulk(ds.train[:WAVE_N], max_iters=2 * WAVE_EF_CONS + 16)
@@ -486,6 +567,7 @@ def main():
     dist, ids = wave.ann_batch(ds.test[:NQ_RECALL], K, wave_ef)
     rec2 = recall_at(ids, truth2)
     wave_launches = groupmin.group_min_d2.launches
+    wave_k1 = kern.launches
     if rec2 < 0.99 or wave_launches < 1:
         raise AssertionError(f"after inserts: recall@10 {rec2:.4f} at ef="
                              f"{wave_ef}, group_min_d2 launches {wave_launches}")
@@ -509,13 +591,19 @@ def main():
 
     print(json.dumps({"kernels": [{
         "name": "group_min_d2", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": KERNEL_REPLACES, "launches": launches,
+        "replaces": KERNEL_REPLACES, "launches": launches + wave_launches,
         "max_abs_err": max(max_err, err_main), "ms": ms_main,
-        "plain_ms": ms_main_plain,
+        "plain_ms": ms_main_plain, "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1], "library_ms": None,
+        "main_path_launches": {"cluster": launches, "wave": wave_launches},
     }, {
         "name": "pairwise_l2sq_kernel", "route": "cuda", "source": K1_SRC,
         "replaces": K1_REPLACES, "launches": k1_launches,
         "max_abs_err": k1_abs, "ms": k1[False][2], "plain_ms": k1[False][3],
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+        "library_ms": ms_k1_lib,
+        "main_path_launches": {"entry_point": k1_launches,
+                               "cluster": cluster_k1, "wave": wave_k1},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

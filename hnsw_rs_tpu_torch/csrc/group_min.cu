@@ -1,4 +1,5 @@
-// Fused quantized-L2 distance + per-128-row-group lexicographic minimum.
+// K2: fused quantized-L2 distance + per-128-row-group lexicographic minimum,
+// on the int8 tensor cores (sm_90a).
 //
 // Replaces the Pallas TPU kernel hnsw_rs_tpu/ops/pallas/l2_groupmin.py
 // (group_min_d2 / _kernel). For f32 queries q[B, d] and u8 codes c[N, d]
@@ -8,169 +9,130 @@
 // winning ties, as out_d / out_i [B, N/128]. The [B, N] matrix never
 // reaches device memory.
 //
-// What bounds it on an H100: the B*N*d multiply-adds in exact f32 (no TF32
-// or bf16 tensor-core path is allowed: a 10-bit mantissa flips near-tie
-// orderings). Codes are read once per 64-query tile, 6 GB at B=4096, N=1M,
-// d=96, most of it from L2, so memory is not the limit; the CUDA cores'
-// f32 FMA rate and the shared-memory operand traffic are.
+// The product, its exactness argument and the TMA / wgmma pipeline are
+// csrc/dist_core.cuh's (query limbs from ops/limbs.py, L = 4). A code tile
+// is one group, so the epilogue needs nothing across tiles: each consumer
+// thread evaluates the affine form on its 2 queries x 32 columns of the
+// 64 x 128 tile with two fused multiply-adds a pair (not the plain
+// version's rounding order: d2 agrees within a few ulps of |q|^2 + |x|^2,
+// and rows may differ only at such ties), keeps the smaller row on equal
+// d2, clamps at 0 once, then the 4 lanes of a quad, which share the two
+// queries, reduce with xor shuffles (smaller row on equal d2), and lane 0
+// of the quad writes both queries' minima.
 //
-// Design: one block of 256 threads per (64-query tile, run of 8 groups).
-// The query tile is staged once, transposed, in shared memory as f32; each
-// group's codes are staged 32 dimensions at a time as f32, transposed so
-// that the 16 threads of a half-warp read consecutive words. Each thread
-// owns a 4-query x 8-row micro-tile (rows tx + 16 r), accumulates the dot
-// products with fmaf in dimension order, applies the affine epilogue with
-// explicitly rounded operations in the order the plain PyTorch version
-// uses, and the 16 lanes that share a query quad reduce their (d2, row)
-// minima with xor shuffles. qsq and qsum come from the caller, computed by
-// the same PyTorch reduction as the plain version, so the only difference
-// from it is the order of the dot-product sums.
+// What bounds it on an H100, at B=4096, N=1,000,064, d=96: the product is
+// 2 * B * N * 96 * 4 limbs = 3.15e12 int8 operations, 1.59 ms at the
+// 1,979 TOP/s dense int8 rate; the bytes (codes 96 MB, scales and norms
+// 12 MB, the [B, N/128] output 256 MB) take 0.11 ms at 3.35 TB/s. Beside
+// the tensor cores, the CUDA cores fold 4 limbs and run the epilogue for
+// each of the 4.1e9 (query, row) pairs, ~19 instructions each: ~2.4 ms of
+// issue at 4 warp-instructions a clock per SM. Each warpgroup's chain per
+// tile is serial (product, wait, fold, four times, then the epilogue), so
+// the tensor and CUDA-core work overlap only across the two warpgroups:
+// 5.1 ms measured, about their sum plus the waits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "dist_core.cuh"
 
 namespace {
 
-constexpr int kGroup = 128;   // rows per group (output granularity)
-constexpr int kTQ = 64;       // queries per block
-constexpr int kKC = 32;       // dimensions staged per step
-constexpr int kThreads = 256; // 16 row lanes x 16 query quads
-constexpr int kGPB = 8;       // groups per block
+struct GroupMin {
+  static constexpr int kExtraBytes = 0;
 
-__global__ void __launch_bounds__(kThreads)
-group_min_kernel(const float* __restrict__ q, const float* __restrict__ qsq,
-                 const float* __restrict__ qsum,
-                 const uint8_t* __restrict__ codes,
-                 const float* __restrict__ scales,
-                 const float* __restrict__ normsq, float* __restrict__ out_d,
-                 int32_t* __restrict__ out_i, int B, int N, int d) {
-  extern __shared__ float smem[];
-  float* qs = smem;             // [d][kTQ]: qs[k * kTQ + i] = q[q0 + i][k]
-  float* cs = smem + d * kTQ;   // [kKC][kGroup]: staged codes as f32
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;      // this thread's rows: tx + 16 * r
-  const int ty = tid >> 4;      // this thread's queries: 4 * ty + i
-  const int q0 = blockIdx.x * kTQ;
-  const int G = N / kGroup;
-  const int g0 = blockIdx.y * kGPB;
-
-  for (int e = tid; e < kTQ * d; e += kThreads) {
-    const int i = e / d, k = e - i * d;
-    const int qi = q0 + i;
-    qs[k * kTQ + i] = qi < B ? q[(size_t)qi * d + k] : 0.f;
-  }
-  float my_qsq[4], my_qsum[4];
+  static __device__ __forceinline__ void apply(const dist::Params& p,
+                                               const dist::Frag& f, int tile,
+                                               uint8_t*) {
+    const int row0 = tile * dist::kRows;
+    const int c0 = 2 * (f.lane & 3);
+    // key = (|q|^2 + |x|^2 - 2 min sum(q)) - 2 delta (q.c), two fused
+    // multiply-adds a pair; max(., 0) once, on the minimum; four running
+    // minima per query keep the compare chains short
+    float bd[2][4];
+    int br[2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
-    my_qsq[i] = qi < B ? qsq[qi] : 0.f;
-    my_qsum[i] = qi < B ? qsum[qi] : 0.f;
-  }
-
-  for (int gg = 0; gg < kGPB; ++gg) {
-    const int g = g0 + gg;
-    if (g >= G) break;  // uniform across the block
-    const size_t row0 = (size_t)g * kGroup;
-    float acc[4][8];
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + c0;
+      const float2 ns = *reinterpret_cast<const float2*>(f.ns + col);
+      const float4 sc = *reinterpret_cast<const float4*>(f.sc + 2 * col);
+      const float m0 = -2.f * sc.x, m1 = -2.f * sc.z;
+      const float g0 = -2.f * sc.y, g1 = -2.f * sc.w;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int r = 0; r < 8; ++r) acc[i][r] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += kKC) {
-      const int kc = min(kKC, d - k0);
-      __syncthreads();  // cs readers of the previous step are done
-      for (int e = tid; e < kGroup * kc; e += kThreads) {
-        const int r = e % kGroup, j = e / kGroup;
-        cs[j * kGroup + r] = (float)codes[(row0 + r) * d + k0 + j];
-      }
-      __syncthreads();
-      for (int j = 0; j < kc; ++j) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(&qs[(k0 + j) * kTQ + 4 * ty]);
-        float b[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) b[r] = cs[j * kGroup + tx + 16 * r];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          acc[0][r] = fmaf(a.x, b[r], acc[0][r]);
-          acc[1][r] = fmaf(a.y, b[r], acc[1][r]);
-          acc[2][r] = fmaf(a.z, b[r], acc[2][r]);
-          acc[3][r] = fmaf(a.w, b[r], acc[3][r]);
+      for (int h = 0; h < 2; ++h) {
+        const float k0 = fmaf(g0, f.dot[4 * j + 2 * h],
+                              fmaf(m0, f.qsum[h], f.qsq[h] + ns.x));
+        const float k1 = fmaf(g1, f.dot[4 * j + 2 * h + 1],
+                              fmaf(m1, f.qsum[h], f.qsq[h] + ns.y));
+        const int c = j & 3;  // columns ascend within each chain: strict <
+        if (j < 4 || k0 < bd[h][c]) {
+          bd[h][c] = k0;
+          br[h][c] = col;
+        }
+        if (k1 < bd[h][c]) {
+          bd[h][c] = k1;
+          br[h][c] = col + 1;
         }
       }
     }
-
-    float best_d[4];
-    int best_r[4];
+    float best_d[2];
+    int best_r[2];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = tx + 16 * r;
-      const size_t gr = row0 + row;
-      const float mn = scales[2 * gr], dl = scales[2 * gr + 1];
-      const float ns = normsq[gr];
+    for (int h = 0; h < 2; ++h) {
+      best_d[h] = bd[h][0];
+      best_r[h] = br[h][0];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qdotx =
-            __fadd_rn(__fmul_rn(dl, acc[i][r]), __fmul_rn(mn, my_qsum[i]));
-        float d2 = __fsub_rn(__fadd_rn(my_qsq[i], ns), __fmul_rn(2.f, qdotx));
-        d2 = fmaxf(d2, 0.f);
-        // rows ascend with r, so a strict < keeps the smaller row on ties
-        if (r == 0 || d2 < best_d[i]) {
-          best_d[i] = d2;
-          best_r[i] = row;
+      for (int c = 1; c < 4; ++c)
+        if (bd[h][c] < best_d[h] ||
+            (bd[h][c] == best_d[h] && br[h][c] < best_r[h])) {
+          best_d[h] = bd[h][c];
+          best_r[h] = br[h][c];
+        }
+      best_d[h] = fmaxf(best_d[h], 0.f);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, best_d[h], off);
+        const int orow = __shfl_xor_sync(0xffffffffu, best_r[h], off);
+        if (od < best_d[h] || (od == best_d[h] && orow < best_r[h])) {
+          best_d[h] = od;
+          best_r[h] = orow;
         }
       }
-    }
-    // lanes 0-15 and 16-31 of a warp each hold one query quad; xor offsets
-    // below 16 stay inside the half-warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, best_d[i], off);
-        const int orow = __shfl_xor_sync(0xffffffffu, best_r[i], off);
-        if (od < best_d[i] || (od == best_d[i] && orow < best_r[i])) {
-          best_d[i] = od;
-          best_r[i] = orow;
-        }
-      }
-    }
-    if (tx == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + 4 * ty + i;
-        if (qi < B) {
-          out_d[(size_t)qi * G + g] = best_d[i];
-          out_i[(size_t)qi * G + g] = (int32_t)(row0 + best_r[i]);
-        }
+      const int qi = f.q_row[h];
+      if ((f.lane & 3) == 0 && qi < p.B) {
+        const size_t o = (size_t)qi * (p.N / dist::kRows) + tile;
+        p.out_d[o] = best_d[h];
+        p.out_i[o] = row0 + best_r[h];
       }
     }
   }
-}
+};
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
-// N must be a multiple of 128; pad rows carry normsq = +inf.
-extern "C" int group_min_d2_launch(const float* q, const float* qsq,
-                                   const float* qsum, const uint8_t* codes,
-                                   const float* scales, const float* normsq,
-                                   float* out_d, int32_t* out_i, int B, int N,
-                                   int d, void* stream) {
-  const int G = N / kGroup;
-  const size_t smem = ((size_t)d * kTQ + (size_t)kKC * kGroup) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        group_min_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((B + kTQ - 1) / kTQ, (G + kGPB - 1) / kGPB);
-  group_min_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      q, qsq, qsum, codes, scales, normsq, out_d, out_i, B, N, d);
-  return (int)cudaGetLastError();
+// Launches the kernel on `stream` and returns a cudaError_t (0 = ok).
+// limbs s8 [4, B, d_pad] and qscale [B] come from ops/limbs.py (d <= 768);
+// codes u8 [N, d_g] (d_g a multiple of 16, <= d_pad); N a multiple of
+// 128, pad rows carrying normsq = +inf.
+extern "C" int group_min_d2_launch(const int8_t* limbs, const float* qscale,
+                                   const float* qsq, const float* qsum,
+                                   const uint8_t* codes, const float* scales,
+                                   const float* normsq, float* out_d,
+                                   int32_t* out_i, int B, int N, int d_pad,
+                                   int d_g, void* stream) {
+  if (N % dist::kRows) return (int)cudaErrorInvalidValue;
+  dist::Params p = {};
+  p.qscale = qscale;
+  p.qsq = qsq;
+  p.qsum = qsum;
+  p.scales = scales;
+  p.normsq = normsq;
+  p.out_d = out_d;
+  p.out_i = out_i;
+  p.B = B;
+  p.N = N;
+  return dist::launch<GroupMin>(limbs, codes, p, d_pad, d_g,
+                                (cudaStream_t)stream);
 }

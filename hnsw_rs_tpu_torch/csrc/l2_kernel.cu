@@ -1,156 +1,115 @@
-// All-pairs squared L2 from float queries to u8 per-vector-quantized points.
+// K1: all-pairs squared L2 from float queries to u8 per-vector-quantized
+// points, on the int8 tensor cores (sm_90a).
 //
 // Replaces the Pallas TPU kernel hnsw_rs_tpu/ops/pallas/l2_kernel.py
 // (pairwise_l2sq_pallas / _l2_kernel). For f32 queries q[B, d] and u8 codes
 // c[N, d] quantized per row as x = delta * c + min, it writes
 //     out[b, j] = max(|q_b|^2 + |x_j|^2 - 2 (delta_j (q_b . c_j) + min_j sum(q_b)), 0)
-// as a dense f32 [B, N] matrix. With fast != 0 each query value is rounded to
-// bf16 (round to nearest even) before the product, as the TPU kernel's bf16
-// MXU pass does; a bf16 value times a code (an integer <= 255) is exact in
-// f32, and the sums stay f32. |q|^2 and sum(q) always use the unrounded q.
+// as a dense f32 [B, N] matrix. With fast=True the wrapper rounds q to bf16
+// before it splits q into limbs, so only the product sees the rounded q;
+// |q|^2 and sum(q) always come from the unrounded q.
 //
-// What bounds it on an H100: a pair costs 2d FLOP (192 at d=96) against one
-// 4-byte output store, 48 FLOP per byte written, above the card's ridge of
-// ~20 f32 FLOP per byte (67 TFLOP/s over 3.35 TB/s). Compute bounds it, as it
-// bounds the group-min kernel: the B*N*d multiply-adds run in exact f32 on
-// the CUDA cores (a TF32 or bf16 tensor-core path would flip near-tie
-// orderings). Codes are read once per 64-query tile, mostly from L2.
+// The product, its exactness argument and the TMA / wgmma pipeline are
+// csrc/dist_core.cuh's (query limbs from ops/limbs.py, L = 4). The
+// epilogue evaluates the affine form in registers and sends the tile out
+// through shared memory: each warp owns 16 queries x 128 rows of the tile
+// and stages 32 columns at a time (a 16 x 40-float buffer, the padding
+// keeping the fragment writes free of bank conflicts), then writes each
+// query's 32 floats as one full 128-byte line with streaming float4
+// stores. Ragged B and N are masked at the store (TMA fills the missing
+// rows, their scales and norms with zeros), so nothing beyond [B, N] is
+// written.
 //
-// Design: the register-tiled f32-FMA structure of csrc/group_min.cu. One
-// block of 256 threads owns 64 queries x kTPB tiles of 128 rows. The query
-// tile is staged once, transposed, as f32 in shared memory; each row tile's
-// codes are staged 32 dimensions at a time as f32, [dim][row] with a row
-// stride of 129 floats, so the staging threads read consecutive bytes of a
-// code row from global memory and write distinct shared-memory banks. Each
-// thread owns a 4-query x 8-row micro-tile (rows tx + 16 r) and accumulates
-// with fmaf in dimension order; the affine epilogue uses explicitly rounded
-// operations in the order of the plain PyTorch version, and |q|^2, sum(q)
-// come from the caller (the same PyTorch reductions as the plain version),
-// so the only difference from it is the order of the dot-product sums. The
-// 16 lanes of a half-warp store 16 consecutive floats of one output row, so
-// every warp store covers two full 64-byte runs. Ragged B and N are masked
-// in the kernel: no padding, and nothing beyond [B, N] is written.
+// What bounds it on an H100, at B=1024, N=1M, d=96: the output is 4.1 GB,
+// 1.22 ms at 3.35 TB/s (codes, scales and norms add 0.1 GB); the product
+// is 2 * B * N * 96 * 4 limbs = 7.9e11 int8 operations, 0.40 ms at
+// 1,979 TOP/s. So the output write bounds it. The CUDA cores' fold and
+// epilogue (~20 instructions per pair, ~0.7 ms of issue) and the tensor
+// work sit in each warpgroup's serial chain per tile, beside the stores:
+// 2.2-2.3 ms measured, the stores streaming at ~1.8 TB/s.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "dist_core.cuh"
 
 namespace {
 
-constexpr int kRows = 128;     // rows per tile
-constexpr int kTQ = 64;        // queries per block
-constexpr int kKC = 32;        // dimensions staged per step
-constexpr int kCS = kRows + 1; // staged-code row stride (bank spread)
-constexpr int kThreads = 256;  // 16 row lanes x 16 query quads
-constexpr int kTPB = 4;        // row tiles per block
+constexpr int kStride = 40;  // floats per staged row
 
-__global__ void __launch_bounds__(kThreads)
-l2_kernel(const float* __restrict__ q, const float* __restrict__ qsq,
-          const float* __restrict__ qsum, const uint8_t* __restrict__ codes,
-          const float* __restrict__ scales, const float* __restrict__ normsq,
-          float* __restrict__ out, int B, int N, int d, int fast) {
-  extern __shared__ float smem[];
-  float* qs = smem;            // [d][kTQ]: qs[k * kTQ + i] = q[q0 + i][k]
-  float* cs = smem + d * kTQ;  // [kKC][kCS]: staged codes as f32
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;     // this thread's rows: tx + 16 * r
-  const int ty = tid >> 4;     // this thread's queries: 4 * ty + i
-  const int q0 = blockIdx.x * kTQ;
-  const int T = (N + kRows - 1) / kRows;
-  const int t0 = blockIdx.y * kTPB;
+struct Dense {
+  static constexpr int kExtraBytes = 4 * dist::kConsumers * 16 * kStride * 4;
 
-  for (int e = tid; e < kTQ * d; e += kThreads) {
-    const int i = e / d, k = e - i * d;
-    const int qi = q0 + i;
-    float v = qi < B ? q[(size_t)qi * d + k] : 0.f;
-    if (fast) v = __bfloat162float(__float2bfloat16_rn(v));
-    qs[k * kTQ + i] = v;
-  }
-  float my_qsq[4], my_qsum[4];
+  static __device__ __forceinline__ void apply(const dist::Params& p,
+                                               const dist::Frag& f, int tile,
+                                               uint8_t* extra) {
+    float* buf = reinterpret_cast<float*>(extra) + f.warp * 16 * kStride;
+    const int row0 = tile * dist::kRows;
+    const int c0 = 2 * (f.lane & 3);
+    const int r = f.lane >> 2;
+    const int q_first = f.q_row[0] - r;  // the warp's first query
+    const bool vec = (p.N & 3) == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
-    my_qsq[i] = qi < B ? qsq[qi] : 0.f;
-    my_qsum[i] = qi < B ? qsum[qi] : 0.f;
-  }
-
-  for (int tt = 0; tt < kTPB; ++tt) {
-    const int t = t0 + tt;
-    if (t >= T) break;  // uniform across the block
-    const int row0 = t * kRows;
-    const int nrows = min(kRows, N - row0);
-    float acc[4][8];
+    for (int part = 0; part < 4; ++part) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * part + jj;
+        const int col = 8 * j + c0;
+        const float2 ns = *reinterpret_cast<const float2*>(f.ns + col);
+        const float4 sc = *reinterpret_cast<const float4*>(f.sc + 2 * col);
 #pragma unroll
-      for (int r = 0; r < 8; ++r) acc[i][r] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += kKC) {
-      const int kc = min(kKC, d - k0);
-      __syncthreads();  // cs readers of the previous step are done
-      for (int e = tid; e < kRows * kc; e += kThreads) {
-        const int r = e / kc, j = e - r * kc;
-        cs[j * kCS + r] =
-            r < nrows ? (float)codes[(size_t)(row0 + r) * d + k0 + j] : 0.f;
-      }
-      __syncthreads();
-      for (int j = 0; j < kc; ++j) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(&qs[(k0 + j) * kTQ + 4 * ty]);
-        float b[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) b[r] = cs[j * kCS + tx + 16 * r];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          acc[0][r] = fmaf(a.x, b[r], acc[0][r]);
-          acc[1][r] = fmaf(a.y, b[r], acc[1][r]);
-          acc[2][r] = fmaf(a.z, b[r], acc[2][r]);
-          acc[3][r] = fmaf(a.w, b[r], acc[3][r]);
+        for (int h = 0; h < 2; ++h) {
+          float2 v;
+          v.x = dist::affine_d2(f.qsq[h], f.qsum[h], f.dot[4 * j + 2 * h], sc.x,
+                                sc.y, ns.x);
+          v.y = dist::affine_d2(f.qsq[h], f.qsum[h], f.dot[4 * j + 2 * h + 1],
+                                sc.z, sc.w, ns.y);
+          *reinterpret_cast<float2*>(&buf[(r + 8 * h) * kStride + 8 * jj + c0]) = v;
         }
       }
-    }
-
+      __syncwarp();
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = tx + 16 * r;
-      if (row >= nrows) continue;
-      const size_t gr = (size_t)row0 + row;
-      const float mn = scales[2 * gr], dl = scales[2 * gr + 1];
-      const float ns = normsq[gr];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + 4 * ty + i;
-        if (qi >= B) continue;
-        const float qdotx =
-            __fadd_rn(__fmul_rn(dl, acc[i][r]), __fmul_rn(mn, my_qsum[i]));
-        const float d2 =
-            __fsub_rn(__fadd_rn(my_qsq[i], ns), __fmul_rn(2.f, qdotx));
-        out[(size_t)qi * N + gr] = fmaxf(d2, 0.f);
+      for (int rr = 0; rr < 4; ++rr) {
+        const int row = 4 * rr + (f.lane >> 3);
+        const int col = 4 * (f.lane & 7);
+        const int qi = q_first + row;
+        const int gc = row0 + 32 * part + col;
+        const float4 v = *reinterpret_cast<const float4*>(&buf[row * kStride + col]);
+        if (qi < p.B && gc < p.N) {
+          float* dst = p.out_d + (size_t)qi * p.N + gc;
+          if (vec && gc + 3 < p.N) {
+            __stcs(reinterpret_cast<float4*>(dst), v);
+          } else {
+            __stcs(dst, v.x);
+            if (gc + 1 < p.N) __stcs(dst + 1, v.y);
+            if (gc + 2 < p.N) __stcs(dst + 2, v.z);
+            if (gc + 3 < p.N) __stcs(dst + 3, v.w);
+          }
+        }
       }
+      __syncwarp();
     }
   }
-}
+};
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
-extern "C" int pairwise_l2sq_launch(const float* q, const float* qsq,
-                                    const float* qsum, const uint8_t* codes,
-                                    const float* scales, const float* normsq,
-                                    float* out, int B, int N, int d, int fast,
-                                    void* stream) {
-  const int T = (N + kRows - 1) / kRows;
-  const size_t smem = ((size_t)d * kTQ + (size_t)kKC * kCS) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((B + kTQ - 1) / kTQ, (T + kTPB - 1) / kTPB);
-  l2_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      q, qsq, qsum, codes, scales, normsq, out, B, N, d, fast);
-  return (int)cudaGetLastError();
+// Launches the kernel on `stream` and returns a cudaError_t (0 = ok).
+// limbs s8 [4, B, d_pad] and qscale [B] come from ops/limbs.py (d <= 768);
+// codes u8 [N, d_g] (d_g a multiple of 16, <= d_pad); out f32 [B, N].
+extern "C" int pairwise_l2sq_launch(const int8_t* limbs, const float* qscale,
+                                    const float* qsq, const float* qsum,
+                                    const uint8_t* codes, const float* scales,
+                                    const float* normsq, float* out, int B,
+                                    int N, int d_pad, int d_g, void* stream) {
+  dist::Params p = {};
+  p.qscale = qscale;
+  p.qsq = qsq;
+  p.qsum = qsum;
+  p.scales = scales;
+  p.normsq = normsq;
+  p.out_d = out;
+  p.B = B;
+  p.N = N;
+  return dist::launch<Dense>(limbs, codes, p, d_pad, d_g,
+                               (cudaStream_t)stream);
 }

@@ -3,8 +3,9 @@
 Every source is compiled on its own by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into
 ``build/torch_kernels/`` under the checkout. A library's name carries a
-hash of its source and of the compile command, so an edited source is
-rebuilt and an unchanged one is reused. :func:`build` starts one ``nvcc``
+hash of its source, of every shared header (``csrc/*.cuh``) and of the
+compile command, so an edited source or header is rebuilt and an
+unchanged one is reused. :func:`build` starts one ``nvcc``
 per missing library, all at once, and waits for them together. The
 compiler's output, the ``-Xptxas -v`` register and shared-memory report
 included, is kept beside each library with a ``.log`` suffix. Libraries
@@ -13,7 +14,8 @@ imported.
 
 The kernels' wrappers share :func:`check_inputs` (the (q, codes, scales,
 normsq) argument rules) and :func:`launch` (load, launch on the current
-stream, raise on a CUDA error).
+stream, raise on a CUDA error); what they pass is prepared by
+``ops/limbs.tensor_core_operands``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_DIM = 768  # keeps a kernel's staged query tile inside one block's shared memory
+MAX_DIM = 768  # csrc/dist_core.cuh: dist::kMaxDim
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -49,8 +51,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives; the key
+    covers the source, every ``csrc/*.cuh`` and the flags."""
     key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode())
+        key.update(header.read_bytes())
     key.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 

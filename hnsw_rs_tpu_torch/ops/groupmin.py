@@ -5,7 +5,8 @@ Exact top-k in two passes, as in the JAX package:
 
 1. :func:`group_min_d2` — per-128-row-group (d2, row) minima [B, N/128].
    On a CUDA tensor it launches the hand-written kernel in
-   ``csrc/group_min.cu``; on a CPU tensor it runs
+   ``csrc/group_min.cu`` (exact int8 tensor-core products of the query's
+   limbs, ``ops/limbs.py``, and the codes); on a CPU tensor it runs
    :func:`group_min_d2_plain`.
 2. :func:`rescore_groups` — the top ``k + _MARGIN`` groups by (min d2,
    group) provably hold every true top-k element (a group holding one has
@@ -26,12 +27,13 @@ import torch
 
 from . import cuda_build
 from .distance import pairwise_l2sq_mxu
+from .limbs import tensor_core_operands
 from .topk import INF, PAD_ID, sort_dist_id
 
 GROUP = 128
 _MARGIN = 8  # extra groups rescored in pass 2 (ulp safety at the boundary)
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def build() -> Path:
@@ -59,21 +61,19 @@ def group_min_d2(
     _check(q, codes, scales, normsq)
     if q.device.type == "cpu":
         return group_min_d2_plain(q, codes, scales, normsq)
-    b, d = q.shape
+    b = q.shape[0]
     n = codes.shape[0]
-    if -(-(n // GROUP) // 8) > 65535:
-        raise ValueError(f"N={n} exceeds the kernel's grid limit")
     out_d = torch.empty((b, n // GROUP), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, n // GROUP), dtype=torch.int32, device=q.device)
     if b == 0 or n == 0:
         return out_d, out_i
-    qsq = (q * q).sum(dim=-1)
-    qsum = q.sum(dim=-1)
+    limbs, qscale, qsq, qsum, codes_g, scales_g, normsq_g, d_pad, d_g = (
+        tensor_core_operands(q, codes, scales, normsq))
     cuda_build.launch(
         "group_min", "group_min_d2_launch", _ARGTYPES, q.device,
-        q.data_ptr(), qsq.data_ptr(), qsum.data_ptr(), codes.data_ptr(),
-        scales.data_ptr(), normsq.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), b, n, d,
+        limbs.data_ptr(), qscale.data_ptr(), qsq.data_ptr(), qsum.data_ptr(),
+        codes_g.data_ptr(), scales_g.data_ptr(), normsq_g.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), b, n, d_pad, d_g,
     )
     group_min_d2.launches += 1
     return out_d, out_i

@@ -8,8 +8,9 @@ uint8 per-vector-quantized points by the affine identity
     |q - (delta*c + min)|^2 = |q|^2 + |x|^2 - 2*(delta*(q.c) + min*sum(q)),
 
 clamped at 0. On a CUDA tensor it launches the hand-written kernel in
-``csrc/l2_kernel.cu`` (built and loaded by :mod:`.cuda_build`); on a CPU
-tensor it runs :func:`pairwise_l2sq_plain`. The Pallas kernel's ``tb``,
+``csrc/l2_kernel.cu`` (exact int8 tensor-core products of the query's
+limbs, ``ops/limbs.py``, and the codes; built and loaded by
+:mod:`.cuda_build`); on a CPU tensor it runs :func:`pairwise_l2sq_plain`. The Pallas kernel's ``tb``,
 ``tn`` and ``interpret`` arguments were Mosaic tiling and interpret-mode
 knobs and have no counterpart; the CUDA kernel masks its own ragged
 edges and writes exactly [B, N].
@@ -25,8 +26,9 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .limbs import tensor_core_operands
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def pairwise_l2sq_kernel(
@@ -45,20 +47,18 @@ def pairwise_l2sq_kernel(
     cuda_build.check_inputs(q, codes, scales, normsq)
     if q.device.type == "cpu":
         return pairwise_l2sq_plain(q, codes, scales, normsq, fast)
-    b, d = q.shape
+    b = q.shape[0]
     n = codes.shape[0]
-    if -(-n // 512) > 65535:
-        raise ValueError(f"N={n} exceeds the kernel's grid limit")
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
     if b == 0 or n == 0:
         return out
-    qsq = (q * q).sum(dim=-1)
-    qsum = q.sum(dim=-1)
+    limbs, qscale, qsq, qsum, codes_g, scales_g, normsq_g, d_pad, d_g = (
+        tensor_core_operands(q, codes, scales, normsq, fast))
     cuda_build.launch(
         "l2_kernel", "pairwise_l2sq_launch", _ARGTYPES, q.device,
-        q.data_ptr(), qsq.data_ptr(), qsum.data_ptr(), codes.data_ptr(),
-        scales.data_ptr(), normsq.data_ptr(), out.data_ptr(), b, n, d,
-        int(fast),
+        limbs.data_ptr(), qscale.data_ptr(), qsq.data_ptr(), qsum.data_ptr(),
+        codes_g.data_ptr(), scales_g.data_ptr(), normsq_g.data_ptr(),
+        out.data_ptr(), b, n, d_pad, d_g,
     )
     pairwise_l2sq_kernel.launches += 1
     return out

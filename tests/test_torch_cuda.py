@@ -8,11 +8,17 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: group rows and top-k ids equal; d2 within rtol 1e-5 plus
-2e-6 of |q|^2 + |x|^2 (the kernel and cuBLAS may sum the q.c products in
-different orders, and the affine form's error scales with the terms it
-cancels); K1 within 2e-6 of |q|^2 + |x|^2. Graphs built on the card and
-on the CPU are held to recall@10 within 0.01 of each other.
+Tolerances: the kernels take q.c exactly on the int8 tensor cores (query
+limbs, ``ops/limbs.py``) and cuBLAS takes it in float32, so the two differ
+by a few float32 ulps of the |q|^2 + |x|^2 that the affine form cancels.
+K2's d2 is held within 1e-5 * d2 + 2e-6 * (|q|^2 + |x|^2) of the plain
+version's; its group rows must be equal except where the plain d2 of both
+rows lies within that tolerance (a tie; such ties are counted and
+printed). ``flat_topk_fused`` ids must equal the plain route's. K1 within
+2e-6 of |q|^2 + |x|^2. The cases span both layouts of the shared core:
+resident query limbs up to d = 256, streamed chunks past it (d = 300,
+520, 700, 768: two and three chunks). Graphs built on the card and on the CPU are held to
+recall@10 within 0.01 of each other.
 """
 
 import numpy as np
@@ -48,8 +54,31 @@ def _collection(dev, n, d, b, seed):
     return q, codes, scales, point_normsq(codes, scales)
 
 
+def check_group_min(q, codes, scales, normsq, kd, ki, pd, pi):
+    """Holds K2's (kd, ki) to the plain version's (pd, pi) as the module
+    docstring says; returns the number of rows that differ (ties)."""
+    mag = (q * q).sum(dim=1, keepdim=True) + normsq[ki.long()]
+    tol = 1e-5 * pd.abs() + 2e-6 * mag
+    assert bool(((kd - pd).abs() <= tol).all())
+    diff = ki != pi
+    bs = diff.nonzero()[:, 0]
+
+    def plain_d2(rows):
+        r = rows.long()
+        dot = (q[bs] * codes[r].float()).sum(dim=1)
+        qdotx = scales[r, 1] * dot + scales[r, 0] * q[bs].sum(dim=1)
+        return torch.clamp_min((q[bs] * q[bs]).sum(dim=1) + normsq[r] - 2.0 * qdotx, 0.0)
+
+    assert bool(((plain_d2(ki[diff]) - plain_d2(pi[diff])).abs() <= tol[diff]).all())
+    return int(diff.sum())
+
+
 @pytest.mark.parametrize("n,d,b", [(50_000, 96, 300), (20_000, 24, 64),
-                                   (9_000, 100, 1), (30_000, 200, 129)])
+                                   (9_000, 100, 1), (30_000, 200, 129),
+                                   (12_000, 7, 1), (40_000, 50, 129),
+                                   (25_000, 7, 129), (15_000, 50, 1),
+                                   (20_000, 300, 129), (8_000, 768, 64),
+                                   (5_000, 520, 1)])
 def test_group_min_kernel_matches_plain(dev, n, d, b):
     q, codes, scales, normsq = _collection(dev, n, d, b, seed=d)
     pc, ps, pn = groupmin.pad_to_groups(codes, scales, normsq)
@@ -59,12 +88,8 @@ def test_group_min_kernel_matches_plain(dev, n, d, b):
     torch.cuda.synchronize()
     assert groupmin.group_min_d2.launches == before + 1
     assert kd.shape == (b, pc.shape[0] // 128) and ki.dtype == torch.int32
-    assert torch.equal(ki, pi)
-    # the affine form cancels |q|^2 + |x|^2: where cuBLAS sums q.c in
-    # another order (its B=1 path does) the d2 error is a few ulps of that
-    # magnitude, not of d2
-    mag = (q * q).sum(dim=1, keepdim=True) + pn[ki.long()]
-    assert bool(((kd - pd).abs() <= 1e-5 * pd.abs() + 2e-6 * mag).all())
+    ties = check_group_min(q, pc, ps, pn, kd, ki, pd, pi)
+    print(f"group rows that differ from the plain version (ties): {ties}")
 
 
 def test_flat_topk_fused_matches_plain_route(dev):
@@ -117,7 +142,10 @@ def test_port_serves_the_same_on_card_as_on_cpu(dev):
 
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("n,d,b", [(300, 50, 70), (70_001, 96, 1030),
-                                   (1, 7, 1), (5_000, 200, 129)])
+                                   (1, 7, 1), (5_000, 200, 129),
+                                   (3_000, 150, 65), (3_000, 180, 64),
+                                   (2_000, 256, 33), (4_000, 300, 70),
+                                   (2_000, 768, 129), (1_000, 700, 1)])
 def test_l2_kernel_matches_plain(dev, n, d, b, fast):
     q, codes, scales, normsq = _collection(dev, n, d, b, seed=n + d)
     before = l2_kernel.pairwise_l2sq_kernel.launches
