@@ -36,8 +36,30 @@ Phases, one line each with its time:
    ``insert_vec`` calls, self-recall of the inserted points, ground
    truth over N + 2,048 points (K2) and recall@10 >= 0.99 on the plain
    branch;
-7. ``python -m hnsw_rs_tpu_torch.eval_glove --device cuda`` on the
+7. the probed path at ``benchmarks/bench_second_regime.py``'s
+   configuration, not cut: heavy-tailed 1M x 96 points, the cluster
+   build, ground truth of 1,024 queries through K2,
+   ``finalize(pivots=32768, pivot_cover=0.5, pivot_shortlist=256)`` with
+   36 probes; the (ef, max_iters) ladder to the first rung with
+   recall@10 >= 0.99 for the probe-packed route (through ``ann_batch``;
+   it must clear one), the narrow probe route and the plain seeded
+   route, each route's QPS over 32,768 queries and bytes/point, one
+   probed batch by stage in CUDA events; then ``refine(rounds=1)``, its
+   seconds and the seeded route's recall at the first rungs before and
+   after;
+8. on the cluster path's index: ``finalize(expand=4)`` beside E=1 at the
+   same rung, and PQ serving at (24 bytes, 4 bits) and (48 bytes, 8
+   bits): training and packing seconds, recall at ef 64, 128, 256 (the
+   run fails under 0.5), QPS, bytes/point;
+9. the wave build's options at N=131,072 (M=16, ef_cons=96): a default
+   build and one each with ``wave_sort``, ``build_seeded`` and
+   ``build_expand=2``: seconds and recall@10 at ef=128, each >= 0.95;
+10. ``python -m hnsw_rs_tpu_torch.eval_glove --device cuda`` on the
    bundled ``test-data``: the GloVe gate on the card.
+
+Before the paths, the query limb split (the pre-pass K1 and K2 launch
+ahead of their kernels) against ``ops/limbs.query_limbs``: limbs and
+scale bit for bit, the two sums within 1e-6.
 
 After the two paths, K2 again at the main path's shape (B=4,096,
 N=1,000,064) against its plain version, with ``flat_topk_fused`` ids
@@ -76,6 +98,17 @@ CLUSTER_KWARGS = {"pool_p": 96, "points_per_cluster": 96, "fanout": 5,
 LADDER = [(16, 8), (24, 10), (24, 12), (32, 16), (40, 20), (40, 24),
           (48, 24), (48, 28), (48, 32), (64, 40), (64, 56), (96, 80),
           (128, 112), (192, 200), (256, 280)]
+# the probed path: benchmarks/bench_second_regime.py:43-50,72-86,194-196
+PROBE_PIVOTS, PROBE_COVER, PROBE_T, PROBES, PROBE_NQ_RECALL = (
+    32768, 0.5, 256, 36, 1024)
+PROBE_LADDER = [(40, 24), (40, 28), (48, 28), (48, 32), (64, 40), (64, 56),
+                (96, 80), (128, 112), (192, 200), (256, 280), (384, 500),
+                (512, 700)]
+# PQ serving on the cluster index: benchmarks/bench_serving_memory.py:246-247
+PQ_MODES = [(24, 4), (48, 8)]
+PQ_EFS = [64, 128, 256]
+OPT_N = 131072  # the wave build's options are driven at this depth
+LIMB_SRC = "hnsw_rs_tpu_torch/csrc/dist_core.cuh"
 KERNEL_SRC = "hnsw_rs_tpu_torch/csrc/group_min.cu"
 KERNEL_REPLACES = "hnsw_rs_tpu/ops/pallas/l2_groupmin.py:78"
 K1_SRC = "hnsw_rs_tpu_torch/csrc/l2_kernel.cu"
@@ -132,17 +165,50 @@ def recall_at(ids, truth):
     return float(np.mean([len(set(a) & set(t)) / K for a, t in zip(ids, truth)]))
 
 
-def timed_qps(index, queries, ef, max_iters=None):
-    """End-to-end QPS of ``ann_batch`` over ``queries`` (one warm call,
-    then at least 3 calls and 3 s)."""
-    index.ann_batch(queries, K, ef, max_iters=max_iters)
+def fn_qps(fn, nq):
+    """QPS of ``fn()`` (one batch of ``nq`` queries per call; one warm
+    call, then at least 3 calls and 3 s, device drained at the end)."""
+    fn()
     torch.cuda.synchronize()
     reps, ts = 0, time.perf_counter()
     while reps < 3 or time.perf_counter() - ts < 3.0:
-        index.ann_batch(queries, K, ef, max_iters=max_iters)
+        fn()
         reps += 1
     torch.cuda.synchronize()
-    return len(queries) * reps / (time.perf_counter() - ts), reps
+    return nq * reps / (time.perf_counter() - ts), reps
+
+
+def timed_qps(index, queries, ef, max_iters=None):
+    """End-to-end QPS of ``ann_batch`` over ``queries`` (numpy in, numpy
+    out), timed as :func:`fn_qps` does."""
+    return fn_qps(lambda: index.ann_batch(queries, K, ef, max_iters=max_iters),
+                  len(queries))
+
+
+def first_rung(fn, ladder, queries, truth, label):
+    """Walk ``ladder`` until ``fn(queries, ef, mi)`` (ids as numpy) reaches
+    recall@10 >= 0.99; returns (ef, mi, recall, gate_met, ids), the last
+    rung tried when none clears."""
+    for ef, mi in ladder:
+        ids = fn(queries, ef, mi)
+        rec = recall_at(ids, truth)
+        print(f"  {label} ef={ef} max_iters={mi} recall@10={rec:.4f}", flush=True)
+        if rec >= 0.99:
+            return ef, mi, rec, True, ids
+    return ef, mi, rec, False, ids
+
+
+def event_ms(stages):
+    """Run ``stages`` (name, fn) in order on the stream; returns
+    {name: ms} by CUDA events."""
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+    marks[0].record()
+    for i, (_, fn) in enumerate(stages):
+        fn()
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    return {name: marks[i].elapsed_time(marks[i + 1])
+            for i, (name, _) in enumerate(stages)}
 
 
 def bound(ops, nbytes):
@@ -207,6 +273,179 @@ def k1_check(out, plain, q, codes, scales, normsq, fast):
     return abs_err, rel_err
 
 
+def limb_check(limbs, q, fast):
+    """Holds the on-card limb split of ``q`` to its plain version: limbs
+    and scale bit for bit, |q|^2 and sum(q) within 1e-6 (of sum q^2 and
+    sum |q|). Returns the largest relative error of the two sums."""
+    kl, ks, kq, ksum = limbs.query_operands(q, fast)
+    pl, ps, pq, psum = limbs.query_operands_plain(q, fast)
+    torch.cuda.synchronize()
+    if not (torch.equal(kl, pl) and torch.equal(ks, ps)):
+        raise AssertionError(f"limb split differs from query_limbs at "
+                             f"{tuple(q.shape)}, fast={fast}")
+    tiny = torch.finfo(torch.float32).tiny
+    err = max(float(((kq - pq).abs() / pq.clamp_min(tiny)).max()),
+              float(((ksum - psum).abs()
+                     / q.abs().sum(dim=1).clamp_min(tiny)).max()))
+    if err > 1e-6:
+        raise AssertionError(f"limb split sums off by {err} at {tuple(q.shape)}")
+    return err
+
+
+def probed_path(dev, t0):
+    """The probed path at ``benchmarks/bench_second_regime.py``'s
+    configuration (heavy-tailed 1M x 96, not cut), then ``refine``.
+    Returns K2's launches on this path."""
+    from hnsw_rs_tpu_torch import FlatIndex, HNSW, search
+    from hnsw_rs_tpu_torch.ops import groupmin
+    from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
+    from hnsw_rs_tpu_torch.ops.topk import INF, PAD_ID
+    from hnsw_rs_tpu_torch.utils.datasets import synthetic_heavy_tailed
+
+    ht = synthetic_heavy_tailed(N, D, n_queries=NQ, seed=42)
+    t0 = phase("probe_data", t0, n=N, d=D, queries=NQ)
+    torch.cuda.reset_peak_memory_stats(dev)
+    idx = HNSW(M, ef_cons=EF_CONS, dim=D, device=dev)
+    idx.insert_bulk(ht.train, cluster_build=True, cluster_kwargs=CLUSTER_KWARGS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = phase("probe_build", t0, vec_per_s=f"{N / build_s:.1f}",
+               layers=len(idx.graph))
+
+    flat = FlatIndex(D, dev)
+    flat.add(ht.train)
+    gt_d, truth = flat.search(ht.test[:PROBE_NQ_RECALL], K, fused=True)
+    del flat
+    launches = groupmin.group_min_d2.launches
+    if (launches < 1 or truth.shape != (PROBE_NQ_RECALL, K)
+            or not np.all(np.isfinite(gt_d))):
+        raise AssertionError("probed path: no group_min_d2 launch, or a ground "
+                             "truth of the wrong shape or values")
+    t0 = phase("probe_ground_truth", t0, queries=PROBE_NQ_RECALL, launches=launches)
+
+    idx.finalize(pivots=PROBE_PIVOTS, pivot_cover=PROBE_COVER,
+                 pivot_shortlist=PROBE_T)
+    idx.serve_probes = PROBES
+    torch.cuda.synchronize()
+    piv_ids, piv_vecs = idx._pivots
+    shortlist, sl_pack, packed0 = idx._pivot_shortlist, idx._pivot_sl_pack, idx._packed0
+    codes, scales = idx.points.codes, idx.points.scales
+    if (idx.serving_route() != "probe_packed"
+            or tuple(shortlist.shape) != (piv_ids.shape[0], PROBE_T)
+            or int(shortlist.min()) < 0 or int(shortlist.max()) >= N):
+        raise AssertionError("finalize(pivot_shortlist=...) did not set up the "
+                             "probe-packed route")
+    t0 = phase("probe_finalize", t0, pivots=int(piv_ids.shape[0]),
+               shortlist=f"{PROBE_T}x{int(shortlist.shape[0])}", probes=PROBES)
+
+    def to_q(x):
+        return dequantize(*quantize(torch.from_numpy(x).to(dev)))
+
+    routes = {
+        "probe_packed": lambda x, ef, mi: idx.ann_batch(x, K, ef, max_iters=mi)[1],
+        "probe_narrow": lambda x, ef, mi: search.ann_search_seeded_probe(
+            packed0, piv_ids, piv_vecs, shortlist, codes, scales, to_q(x), ef, K,
+            mi, PROBES)[1].cpu().numpy(),
+        "seeded": lambda x, ef, mi: search.ann_search_seeded(
+            idx._packed0, piv_ids, piv_vecs, to_q(x), ef, K, mi)[1].cpu().numpy(),
+    }
+    base_bytes = (packed0.numel() + piv_vecs.numel() * 4 + piv_ids.numel() * 4
+                  + N * D + N * 8 + sum(a.numel() * 4 for a in idx.graph.adjs))
+    extra_bytes = {"probe_packed": sl_pack.numel(),
+                   "probe_narrow": shortlist.numel() * 4, "seeded": 0}
+    chosen = {}
+    for name, fn in routes.items():
+        ef, mi, rec, met, ids = first_rung(fn, PROBE_LADDER, ht.test[:PROBE_NQ_RECALL],
+                                           truth, name)
+        if ids.shape != (PROBE_NQ_RECALL, K) or ids.min() < 0 or ids.max() >= N:
+            raise AssertionError(f"{name}: results of the wrong shape or values")
+        if name == "probe_packed" and not met:
+            raise AssertionError("the probe-packed route clears no rung of the "
+                                 "ladder at recall@10 >= 0.99")
+        qps, reps = fn_qps(lambda: fn(ht.test, ef, mi), NQ)
+        chosen[name] = (ef, mi)
+        t0 = phase(f"probe_serve_{name}", t0, ef=ef, max_iters=mi,
+                   recall=f"{rec:.4f}", gate_met=met, qps=f"{qps:.1f}", batch=NQ,
+                   reps=reps,
+                   bytes_per_point=f"{(base_bytes + extra_bytes[name]) / N:.1f}")
+
+    # one probed batch of 32,768 by stage, on the stream, in the query
+    # chunks the route itself uses: pivot seeds, probe gather and score,
+    # the merge of the pool, the beam
+    ef, mi = chosen["probe_packed"]
+    qd = to_q(ht.test)
+    step = search._query_chunk(NQ, search._probe_bytes_per_query(
+        PROBE_T, D, int(piv_ids.shape[0]), ef, PROBES, packed=True), dev)
+    chunks = [qd[lo:lo + step] for lo in range(0, NQ, step)]
+    st = {}
+
+    def seeds():
+        st["seeds"] = [search._pivot_seeds_pos(piv_ids, piv_vecs, qc, ef)
+                       for qc in chunks]
+
+    def probe():
+        st["pools"] = []
+        for qc, (e_d2, e_ids, pos) in zip(chunks, st["seeds"]):
+            d2p, idp = [e_d2], [e_ids]
+            for i in range(PROBES):
+                d2_i, ids_i = search._score_probe_packed(sl_pack, PROBE_T, D, qc,
+                                                         pos[:, i])
+                d2p.append(torch.where(ids_i >= 0, d2_i, INF))
+                idp.append(torch.where(ids_i >= 0, ids_i, PAD_ID))
+            st["pools"].append((torch.cat(d2p, dim=1), torch.cat(idp, dim=1)))
+
+    def merge():
+        tops = [search._top_ef_dedup_oversampled(md2, mids, ef)
+                for md2, mids in st["pools"]]
+        st["entry"] = (torch.cat([t[0][:, :ef] for t in tops]),
+                       torch.cat([t[1][:, :ef] for t in tops]))
+
+    def beam():
+        st["beam"] = search.search_layer_packed(packed0, qd, *st["entry"], ef, mi)
+
+    stages = [("seeds_ms", seeds), ("probe_ms", probe), ("merge_ms", merge),
+              ("beam_ms", beam)]
+    event_ms(stages)  # warm
+    st.clear()
+    torch.cuda.empty_cache()
+    ms = event_ms(stages)
+    _, want = search.ann_search_seeded_probe_packed(
+        packed0, piv_ids, piv_vecs, sl_pack, PROBE_T, D, qd, ef, K, mi, PROBES)
+    if not torch.equal(st["beam"][1][:, :K], want):
+        raise AssertionError("the staged probed batch differs from the route")
+    st.clear()
+    del qd, chunks, want
+    torch.cuda.empty_cache()
+    t0 = phase("probe_breakdown", t0, ef=ef, max_iters=mi, query_chunk=step,
+               **{k: f"{v:.3f}" for k, v in ms.items()},
+               stages_ms=f"{sum(ms.values()):.3f}",
+               peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+
+    # refine: what one NN-descent round buys the plain seeded route here
+    rungs = PROBE_LADDER[:3]
+    q1k = ht.test[:PROBE_NQ_RECALL]
+    before = [recall_at(routes["seeded"](q1k, ef, mi), truth) for ef, mi in rungs]
+    del packed0, shortlist, sl_pack
+    t0 = time.perf_counter()
+    idx.refine(rounds=1)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    if idx.serving_route() != "seeded_plain" or not idx.assert_param_compliance(False):
+        raise AssertionError("refine: the packed rows were kept, or the graph "
+                             "breaks the degree rules")
+    idx.finalize(pivots=PROBE_PIVOTS, pivot_cover=PROBE_COVER)
+    if idx.serving_route() != "seeded" or not torch.equal(idx._pivots[0], piv_ids):
+        raise AssertionError("finalize after refine: wrong route or other pivots")
+    after = [recall_at(routes["seeded"](q1k, ef, mi), truth) for ef, mi in rungs]
+    if min(after) < min(before) - 0.02:
+        raise AssertionError(f"refine lowered recall: {before} -> {after}")
+    phase("probe_refine", t0, refine_s=f"{refine_s:.3f}",
+          rungs=json.dumps(rungs).replace(" ", ""),
+          recall_before=json.dumps([round(r, 4) for r in before]).replace(" ", ""),
+          recall_after=json.dumps([round(r, 4) for r in after]).replace(" ", ""))
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -225,7 +464,7 @@ def main():
     sys.path.insert(0, ROOT)
     from hnsw_rs_tpu_torch import FlatIndex, HNSW
     from hnsw_rs_tpu_torch.build import _insert_wave_fused_impl
-    from hnsw_rs_tpu_torch.ops import cuda_build, groupmin, l2_kernel
+    from hnsw_rs_tpu_torch.ops import cuda_build, groupmin, l2_kernel, limbs
     from hnsw_rs_tpu_torch.ops.distance import point_normsq
     from hnsw_rs_tpu_torch.ops.limbs import N_LIMBS, padded_dim
     from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
@@ -234,7 +473,7 @@ def main():
     from hnsw_rs_tpu_torch.utils.datasets import synthetic_clustered
     t0 = phase("device", t0, kind=repr(kind))
 
-    libs = cuda_build.build("group_min", "l2_kernel")
+    libs = cuda_build.build("group_min", "l2_kernel", "query_limbs")
     tensor_ops = {}
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -242,13 +481,43 @@ def main():
                 print(f"  ptxas {lib.name}:", line.strip())
         ops = tensor_ops[lib.name] = sass_counts(lib)
         print(f"  sass {lib.name}:", json.dumps(ops), flush=True)
-        if ops["IGMMA"] + ops["IMMA"] == 0:
+        if (not lib.name.startswith("query_limbs")
+                and ops["IGMMA"] + ops["IMMA"] == 0):
             raise AssertionError(f"{lib.name} has no int8 tensor-core instruction")
     t0 = phase("build", t0, libraries=",".join(lib.name for lib in libs),
                tensor_core_instructions=json.dumps(tensor_ops).replace(" ", ""))
 
     ds = synthetic_clustered(N, D, n_queries=NQ, seed=42)
     t0 = phase("data", t0, n=N, d=D, queries=NQ)
+
+    # -- the query limb split vs its plain version --------------------------------
+    # corner rows first (all zero, a power-of-two maximum, a row below
+    # 2^-96, rounding ties of both signs), at four shapes and both modes;
+    # then the main path's shape (B=4096, d=96), checked and timed
+    rng = np.random.default_rng(1)
+    limb_err = 0.0
+    for b, d in ((1, 7), (33, 96), (300, 300), (4096, 768)):
+        qx = rng.normal(0, 3, (b, d)).astype(np.float32)
+        qx[0] = 0.0
+        if b > 3:
+            qx[1] = rng.uniform(-1, 1, d)
+            qx[1, 0] = -4.0
+            qx[2] = rng.uniform(-1, 1, d) * 2.0 ** -100
+            qx[3] = (rng.integers(-1000, 1000, d) + 0.5) * 2.0 ** -29
+            qx[3, -1] = 1.5
+        for fast in (False, True):
+            limb_err = max(limb_err, limb_check(limbs, torch.from_numpy(qx).to(dev), fast))
+    ql = dequantize(*quantize(torch.from_numpy(ds.test[:NQ_RECALL]).to(dev)))
+    limb_err = max(limb_err, limb_check(limbs, ql, False))
+    ms_limb = cuda_ms(lambda: limbs.query_operands(ql), 50)
+    ms_limb_plain = cuda_ms(lambda: limbs.query_operands_plain(ql), 50)
+    # a few integer operations per component against 4 B in and 4 B out
+    # per padded component: the bytes bound it
+    limb_bound = NQ_RECALL * (D * 4 + padded_dim(D) * N_LIMBS + 12) / MEM_BPS * 1e3
+    del ql
+    t0 = phase("limbs_vs_plain", t0, B=NQ_RECALL, d=D, limbs_and_scale="equal",
+               sums_rel_err=f"{limb_err:.3e}", ms=f"{ms_limb:.4f}",
+               plain_ms=f"{ms_limb_plain:.4f}", bound_ms=f"{limb_bound:.5f}")
 
     # -- kernel vs plain on the card -----------------------------------------
     x = torch.from_numpy(ds.train[:262144]).to(dev)
@@ -343,6 +612,7 @@ def main():
 
     # -- main path -------------------------------------------------------------
     groupmin.group_min_d2.launches = kern.launches = 0
+    limbs.query_operands.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     index = HNSW(M, ef_cons=EF_CONS, dim=D, device=dev)
     index.insert_bulk(ds.train, cluster_build=True, cluster_kwargs=CLUSTER_KWARGS)
@@ -396,8 +666,10 @@ def main():
     qps, reps = timed_qps(index, ds.test, ef, mi)
     launches = groupmin.group_min_d2.launches
     cluster_k1 = kern.launches
-    if launches < 1:
-        raise AssertionError("the main path never launched group_min_d2")
+    limb_launches = {"cluster": limbs.query_operands.launches}
+    if launches < 1 or limb_launches["cluster"] < 1:
+        raise AssertionError("the main path never launched group_min_d2 or "
+                             "its limb split")
 
     piv_ids, piv_vecs = index._pivots
     serve_bytes = (index._packed0.numel() + piv_vecs.numel() * 4
@@ -448,11 +720,55 @@ def main():
                bound_ms=f"{k2_bound[0]:.4f}", bound_by=k2_bound[1],
                f32_bound_ms=f"{2 * NQ_RECALL * n_pad * D / F32_FLOPS * 1e3:.4f}")
 
-    del qg, cg, sg, ng, index
+    del qg, cg, sg, ng, ki, pi, qd, e_d2, e_ids
     torch.cuda.empty_cache()
+
+    # -- E>1 and PQ serving on the cluster path's index ---------------------------
+    index.finalize(expand=4, pivots=PIVOTS)
+    _, ids4 = index.ann_batch(ds.test[:NQ_RECALL], K, ef, max_iters=mi)
+    rec4 = recall_at(ids4, truth)
+    if index.serve_expand != 4 or index.serving_route() != "seeded" or rec4 < rec - 0.005:
+        raise AssertionError(f"expand=4: route {index.serving_route()!r}, "
+                             f"recall@10 {rec4:.4f} against E=1's {rec:.4f}")
+    qps4, reps = timed_qps(index, ds.test, ef, mi)
+    t0 = phase("serve_expand4", t0, ef=ef, max_iters=mi, recall=f"{rec4:.4f}",
+               recall_e1=f"{rec:.4f}", qps=f"{qps4:.1f}", qps_e1=f"{qps:.1f}",
+               reps=reps)
+    for pq_m, bits in PQ_MODES:
+        index.finalize(pivots=PIVOTS, pq_m=pq_m, pq_bits=bits)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        if index.serving_route() != "pq" or index._packed0 is not None:
+            raise AssertionError("finalize(pq_m=...) did not switch to PQ serving")
+        recs = {}
+        for pef in PQ_EFS:
+            dist, ids = index.ann_batch(ds.test[:NQ_RECALL], K, pef)
+            recs[pef] = recall_at(ids, truth)
+            if not (np.all(np.isfinite(dist)) and recs[pef] >= 0.5):
+                raise AssertionError(f"PQ serving pq_m={pq_m} bits={bits} ef={pef}: "
+                                     f"recall@10 {recs[pef]}, or non-finite d")
+        pq_qps, reps = timed_qps(index, ds.test, 128)
+        cb, pq_codes, packed_pq, _ = index._pq
+        pq_bytes = (packed_pq.numel() + pq_codes.numel() + cb.numel() * 4
+                    + piv_vecs.numel() * 4 + piv_ids.numel() * 4 + N * D + N * 8
+                    + sum(a.numel() * 4 for a in index.graph.adjs))
+        t0 = phase(f"serve_pq{pq_m}x{bits}bit", t0, train_pack_s=f"{train_s:.3f}",
+                   **{f"recall_ef{e_}": f"{r_:.4f}" for e_, r_ in recs.items()},
+                   qps_ef128=f"{pq_qps:.1f}", reps=reps,
+                   bytes_per_point=f"{pq_bytes / N:.1f}",
+                   packed_bytes_per_point=f"{packed_pq.numel() / N:.1f}")
+    del index, flat, cb, pq_codes, packed_pq, piv_ids, piv_vecs
+    torch.cuda.empty_cache()
+
+    # -- the probed path: heavy-tailed 1M, shortlist probes, refine ---------------
+    groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    probe_launches = probed_path(dev, t0)
+    limb_launches["probe"] = limbs.query_operands.launches
+    t0 = time.perf_counter()
 
     # -- the wave path: wave build, hierarchical serving, inserts ----------------
     groupmin.group_min_d2.launches = kern.launches = 0
+    limbs.query_operands.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     wave = HNSW(WAVE_M, ef_cons=WAVE_EF_CONS, dim=D, device=dev)
     wave.insert_bulk(ds.train[:WAVE_N], max_iters=2 * WAVE_EF_CONS + 16)
@@ -568,6 +884,7 @@ def main():
     rec2 = recall_at(ids, truth2)
     wave_launches = groupmin.group_min_d2.launches
     wave_k1 = kern.launches
+    limb_launches["wave"] = limbs.query_operands.launches
     if rec2 < 0.99 or wave_launches < 1:
         raise AssertionError(f"after inserts: recall@10 {rec2:.4f} at ef="
                              f"{wave_ef}, group_min_d2 launches {wave_launches}")
@@ -575,6 +892,35 @@ def main():
                route=route, self_recall=f"{self_rec:.4f}", ef=wave_ef,
                recall=f"{rec2:.4f}", n=len(wave), launches=wave_launches)
     del wave, flat
+    torch.cuda.empty_cache()
+
+    # -- the wave build's options, at a smaller depth ------------------------------
+    groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    flat = FlatIndex(D, dev)
+    flat.add(ds.train[:OPT_N])
+    _, truth_opt = flat.search(ds.test[:NQ_RECALL], K, fused=True)
+    del flat
+    opt_launches = groupmin.group_min_d2.launches
+    limb_launches["wave_options"] = limbs.query_operands.launches
+    t0 = time.perf_counter()
+    for name, kw in (("default", {}), ("wave_sort", {"wave_sort": True}),
+                     ("build_seeded", {"build_seeded": True}),
+                     ("build_expand2", {"build_expand": 2})):
+        w = HNSW(WAVE_M, ef_cons=WAVE_EF_CONS, dim=D, device=dev)
+        w.insert_bulk(ds.train[:OPT_N], max_iters=2 * WAVE_EF_CONS + 16, **kw)
+        torch.cuda.synchronize()
+        opt_s = time.perf_counter() - t0
+        _, ids = w.ann_batch(ds.test[:NQ_RECALL], K, 128)
+        rec_o = recall_at(ids, truth_opt)
+        if rec_o < 0.95 or not w.assert_param_compliance(False):
+            raise AssertionError(f"wave build ({name}) at N={OPT_N}: recall@10 "
+                                 f"{rec_o:.4f} at ef=128, or the degree rules broke")
+        stages = {k: round(v, 3) for k, v in w.build_phase_s.items()
+                  if k.startswith("wave_")}
+        del w
+        t0 = phase(f"wave_option_{name}", t0, n=OPT_N, build_s=f"{opt_s:.3f}",
+                   recall_ef128=f"{rec_o:.4f}",
+                   stages=json.dumps(stages).replace(" ", ""))
     torch.cuda.empty_cache()
 
     # -- the GloVe gate through the port's CLI, on the card ----------------------
@@ -591,11 +937,14 @@ def main():
 
     print(json.dumps({"kernels": [{
         "name": "group_min_d2", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": KERNEL_REPLACES, "launches": launches + wave_launches,
+        "replaces": KERNEL_REPLACES,
+        "launches": launches + probe_launches + wave_launches + opt_launches,
         "max_abs_err": max(max_err, err_main), "ms": ms_main,
         "plain_ms": ms_main_plain, "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1], "library_ms": None,
-        "main_path_launches": {"cluster": launches, "wave": wave_launches},
+        "main_path_launches": {"cluster": launches, "probe": probe_launches,
+                               "wave": wave_launches,
+                               "wave_options": opt_launches},
     }, {
         "name": "pairwise_l2sq_kernel", "route": "cuda", "source": K1_SRC,
         "replaces": K1_REPLACES, "launches": k1_launches,
@@ -604,6 +953,14 @@ def main():
         "library_ms": ms_k1_lib,
         "main_path_launches": {"entry_point": k1_launches,
                                "cluster": cluster_k1, "wave": wave_k1},
+    }, {
+        # the pre-pass of both kernels' tensor-core form: it makes the
+        # limbs they take in place of the Pallas kernels' float queries
+        "name": "query_limbs", "route": "cuda", "source": LIMB_SRC,
+        "replaces": KERNEL_REPLACES, "launches": sum(limb_launches.values()),
+        "max_abs_err": limb_err, "ms": ms_limb, "plain_ms": ms_limb_plain,
+        "bound_ms": limb_bound, "bound_by": "bytes", "library_ms": None,
+        "main_path_launches": limb_launches,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

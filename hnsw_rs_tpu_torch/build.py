@@ -16,8 +16,7 @@ Where the JAX package's functional updates donate their buffers, the
 port updates the adjacency, in-degree ledgers and the packed layer-0
 table in place. The JAX package pads waves to a few bucket sizes to bound
 XLA recompiles; padded lanes carry -1 and change nothing, so the port
-runs unpadded waves. Not ported yet: ``build_expand > 1``,
-``wave_sort``, ``build_seeded`` and the stop-layer wave insert of the
+runs unpadded waves. Not ported yet: the stop-layer wave insert of the
 sharded builds (ROADMAP.md queue A).
 """
 
@@ -38,6 +37,7 @@ from .ops.topk import INF, PAD_ID, SENTINEL, lex_perm
 from .params import Params
 from .search import (
     _gather_vecs,
+    _pivot_seeds,
     comb_table,
     empty_packed,
     greedy_descent,
@@ -90,8 +90,8 @@ def _packed_limit(device: torch.device, pack_lag: int) -> int:
 
 def _wave_layer_step_impl(adj, codes, scales, ids_w, entry_d2, entry_ids,
                           ef: int, m: int, max_iters: int,
-                          extend_cands: bool = True, packed=None,
-                          phase_s: dict | None = None):
+                          extend_cands: bool = True, expand_e: int = 1,
+                          packed=None, phase_s: dict | None = None):
     """One layer of the insertion pipeline for a whole wave
     (``inserter.rs:91-126``): beam search with ``ef`` (= ef_cons), then
     ``select_heuristic(m, extend, keep_pruned=True)``, each wave node
@@ -99,6 +99,9 @@ def _wave_layer_step_impl(adj, codes, scales, ids_w, entry_d2, entry_ids,
     up to date by :func:`_apply_wave_impl`) the beam and the extend pool
     read one wide row per expansion; the results are the same. Returns
     the selected (d2 [W, m], ids [W, m]), also the next layer's entry.
+    ``expand_e`` > 1 pops E beam entries per lockstep iteration of the
+    construction search (``insert_bulk(build_expand=...)``): fewer, wider
+    iterations at a held pool quality; E=1 is the reference's order.
     ``phase_s``: when a dict, the seconds of the beam and of the select
     are added to its ``wave_beam`` and ``wave_select``."""
     t0 = time.perf_counter()
@@ -106,14 +109,16 @@ def _wave_layer_step_impl(adj, codes, scales, ids_w, entry_d2, entry_ids,
     q = dequantize(codes[safe], scales[safe])
     if packed is not None:
         beam_d2, beam_ids = search_layer_packed(
-            packed, q, entry_d2, entry_ids, ef, max_iters, forbid=ids_w)
+            packed, q, entry_d2, entry_ids, ef, max_iters, expand_e=expand_e,
+            forbid=ids_w)
         t0 = _mark(phase_s, "wave_beam", t0, codes.device)
         sel = select_heuristic_packed(
             packed, codes, scales, q, beam_d2, beam_ids, m,
             extend_cands=extend_cands, keep_pruned=True, forbid=ids_w)
     else:
         beam_d2, beam_ids = search_layer(adj, codes, scales, q, entry_d2,
-                                         entry_ids, ef, max_iters, forbid=ids_w)
+                                         entry_ids, ef, max_iters, forbid=ids_w,
+                                         expand_e=expand_e)
         t0 = _mark(phase_s, "wave_beam", t0, codes.device)
         sel = select_heuristic(adj, codes, scales, q, beam_d2, beam_ids, m,
                                extend_cands=extend_cands, keep_pruned=True,
@@ -263,34 +268,42 @@ def _apply_wave_impl(adj, indeg, codes, scales, ids_w, nbr_d2, nbr_ids,
 def _insert_wave_fused_impl(adjs: list, indegs: list, codes, scales, ids_w,
                             ep: int, ef: int, m: int, max_iters: int,
                             layer_nb: int, extend_cands: bool = True,
-                            packed0=None, comb=None, repack: bool = True,
-                            phase_s: dict | None = None):
+                            expand_e: int = 1, packed0=None, comb=None,
+                            repack: bool = True, pivot_ids=None,
+                            pivot_vecs=None, phase_s: dict | None = None):
     """One whole wave: greedy descent from the entry point down to the
     wave's home layer ``layer_nb``, then (beam search, select) at every
     layer from ``layer_nb`` down to 0, all against the pre-wave graph;
     then the applies, layer by layer, in place. ``adjs``/``indegs`` are
     the full layer stacks, layer 0 first. With ``packed0``/``comb``
     (together) layer 0 searches and pools read the packed rows and its
-    apply repacks what it rewrote. Returns (adjs, indegs) or (adjs,
-    indegs, packed0, stale). ``phase_s``: when a dict, the stages'
+    apply repacks what it rewrote. With ``pivot_ids``/``pivot_vecs`` a
+    layer-0 wave is seeded (``build_seeded``): every node of level >= 1
+    is inserted before any layer-0 home wave, so one product against that
+    skeleton hands the beam ef good seeds instead of one descent entry
+    (the build-side analogue of ``search.ann_search_seeded``). Returns
+    (adjs, indegs) or (adjs, indegs, packed0, stale). ``phase_s``: when a dict, the stages'
     seconds are added to its ``wave_descent``, ``wave_beam``,
     ``wave_select`` and ``wave_apply`` (the device is drained at each
     stage's end)."""
     t0 = time.perf_counter()
     safe = ids_w.clamp(0, codes.shape[0] - 1).long()
     q = dequantize(codes[safe], scales[safe])
-    e_d2, e_ids = seed_entry(codes, scales, q, ep)
-    cur_d2, cur_ids = e_d2[:, 0], e_ids[:, 0]
-    for lam in range(len(adjs) - 1, layer_nb, -1):
-        cur_d2, cur_ids = greedy_descent(adjs[lam], codes, scales, q, cur_d2,
-                                         cur_ids, forbid=ids_w)
-    entry_d2, entry_ids = cur_d2[:, None], cur_ids[:, None]
+    if pivot_vecs is not None and layer_nb == 0:
+        entry_d2, entry_ids = _pivot_seeds(pivot_ids, pivot_vecs, q, ef)
+    else:
+        e_d2, e_ids = seed_entry(codes, scales, q, ep)
+        cur_d2, cur_ids = e_d2[:, 0], e_ids[:, 0]
+        for lam in range(len(adjs) - 1, layer_nb, -1):
+            cur_d2, cur_ids = greedy_descent(adjs[lam], codes, scales, q,
+                                             cur_d2, cur_ids, forbid=ids_w)
+        entry_d2, entry_ids = cur_d2[:, None], cur_ids[:, None]
     _mark(phase_s, "wave_descent", t0, codes.device)
     results = []
     for lam in range(layer_nb, -1, -1):
         entry_d2, entry_ids = _wave_layer_step_impl(
             adjs[lam], codes, scales, ids_w, entry_d2, entry_ids, ef=ef, m=m,
-            max_iters=max_iters, extend_cands=extend_cands,
+            max_iters=max_iters, extend_cands=extend_cands, expand_e=expand_e,
             packed=packed0 if lam == 0 else None, phase_s=phase_s)
         results.append((lam, entry_d2, entry_ids))
     t0 = time.perf_counter()
@@ -475,20 +488,21 @@ def insert_waves(graph: LayeredGraph, store: PointStore, params: Params,
                  wave_growth: float = 0.5, wave_cap: int = 4096,
                  build_expand: int = 1,
                  packed_state: PackedBuildState | None = None,
+                 pivots: tuple | None = None,
                  phase_s: dict | None = None) -> None:
     """Insert ``home_ids`` (all of level ``layer_nb``) wave by wave into
     ``graph``, in place: the per-layer analogue of the thread fan-out at
     ``template.rs:403-440``. ``packed_state`` carries the packed layer-0
-    table through the waves; ``phase_s`` collects the waves' stage
-    seconds (:func:`_insert_wave_fused_impl`)."""
-    if build_expand != 1:
-        raise NotImplementedError(
-            "build_expand > 1 is not ported yet (ROADMAP.md queue A)")
+    table through the waves; ``pivots`` (ids, vectors) seeds layer-0
+    waves; ``phase_s`` collects the waves' stage seconds
+    (:func:`_insert_wave_fused_impl`)."""
     codes, scales = store.codes, store.scales
     nlayers = len(graph)
     kw = dict(ef=params.ef_cons, m=params.m, max_iters=max_iters,
               layer_nb=layer_nb, extend_cands=params.extend_cands,
-              phase_s=phase_s)
+              expand_e=build_expand, phase_s=phase_s)
+    if pivots is not None:
+        kw["pivot_ids"], kw["pivot_vecs"] = pivots
     home = torch.from_numpy(np.asarray(home_ids, np.int32)).to(store.device)
     off = 0
     for wave_i, wsize in enumerate(
@@ -518,12 +532,23 @@ def insert_waves(graph: LayeredGraph, store: PointStore, params: Params,
         packed_state.maybe_refresh(graph, store)
 
 
+def wave_projection(codes: torch.Tensor, scales: torch.Tensor) -> np.ndarray:
+    """Every point's projection onto one seeded random direction
+    (``default_rng(7)``), float32[N] on the host: the key ``wave_sort``
+    orders a layer's home nodes by. Computed from the codes as the JAX
+    package does: ``min * sum(r) + delta * (codes . r)``."""
+    r = np.random.default_rng(7).standard_normal(codes.shape[1]).astype(np.float32)
+    cdot = codes.to(torch.float32) @ torch.from_numpy(r).to(codes.device)
+    return (scales[:, 0] * float(r.sum()) + scales[:, 1] * cdot).cpu().numpy()
+
+
 def build_index(store: PointStore, params: Params, verbose: bool = False,
                 max_iters: int | None = None, wave_base: int = 16,
                 wave_growth: float = 0.5, wave_cap: int = 4096,
                 build_expand: int = 1, packed_build: bool | str = "auto",
                 pack_lag: int = 1, wave_sort: bool = False,
-                build_seeded: bool = False, cluster_build: bool = False,
+                build_seeded: bool = False, build_pivot_cap: int = 8192,
+                cluster_build: bool = False,
                 cluster_kwargs: dict | None = None,
                 phase_s: dict | None = None):
     """Build the full layered graph for ``store`` (``insert_bulk``,
@@ -540,6 +565,16 @@ def build_index(store: PointStore, params: Params, verbose: bool = False,
     1 repacks the rewritten rows in every wave (the graph is bit-identical
     to a plain build); K > 1 repacks the whole table every K waves.
 
+    ``build_expand`` E > 1 pops E beam entries per iteration of every
+    construction search. ``wave_sort`` orders each layer's home nodes by
+    a 1-D random projection, so that the lockstep waves hold spatially
+    coherent queries (the beam and accept loops run to the slowest lane
+    of a wave); the insertion order changes, so the graph differs from
+    the input-order build. ``build_seeded`` starts the layer-0
+    construction searches from ef pivot seeds out of the level >= 1
+    skeleton (at most ``build_pivot_cap`` of it, an even deterministic
+    subsample) instead of one greedy-descent entry.
+
     ``cluster_build=True`` runs the cluster-bulk builder on every layer
     instead (``build_cluster.build_layer0_clustered``, forwarding
     ``cluster_kwargs``), then the connectivity backstop; it returns the
@@ -549,10 +584,6 @@ def build_index(store: PointStore, params: Params, verbose: bool = False,
     (``layer<l>``, the waves' ``wave_descent``, ``wave_beam``,
     ``wave_select`` and ``wave_apply`` summed over all layers, and
     ``connectivity`` for the wave builder)."""
-    if build_expand != 1 or wave_sort or build_seeded:
-        raise NotImplementedError(
-            "build_expand > 1, wave_sort and build_seeded are not ported yet "
-            "(ROADMAP.md queue A)")
     n = len(store)
     dev = store.device
     levels = store.levels
@@ -586,12 +617,28 @@ def build_index(store: PointStore, params: Params, verbose: bool = False,
     state = PackedBuildState(empty_packed(n, cap0, d, dev),
                              comb_table(store.codes, store.scales),
                              lag=pack_lag) if use_packed else None
+    proj = wave_projection(store.codes[:n], store.scales[:n]) if (
+        wave_sort and n) else None
+    pivots = None
+    if build_seeded and top >= 1:
+        piv = np.flatnonzero(levels >= 1).astype(np.int32)
+        if piv.size > build_pivot_cap > 0:
+            # cap the seed set: the seed stage holds [W, P] distance temps
+            piv = piv[np.unique(np.linspace(0, piv.size - 1, build_pivot_cap)
+                                .round().astype(np.int64))]
+        if piv.size:
+            piv_dev = torch.from_numpy(piv).to(dev)
+            pivots = (piv_dev, dequantize(store.codes[piv_dev.long()],
+                                          store.scales[piv_dev.long()]))
     for layer_nb in range(top, -1, -1):
         t0 = time.perf_counter()
         home = np.flatnonzero(levels == layer_nb).astype(np.int32)
+        if proj is not None and home.size > 1:
+            home = home[np.argsort(proj[home], kind="stable")]
         insert_waves(graph, store, params, home, layer_nb, ep, max_iters,
                      wave_base, wave_growth, wave_cap, build_expand,
-                     packed_state=state, phase_s=phase_s)
+                     packed_state=state,
+                     pivots=pivots if layer_nb == 0 else None, phase_s=phase_s)
         _mark(phase_s, f"layer{layer_nb}", t0, dev)
         if verbose:
             print(f"building HNSW index: layer {layer_nb}, {home.size} nodes "

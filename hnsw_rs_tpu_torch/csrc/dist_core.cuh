@@ -6,8 +6,9 @@
 //     d2[b, j] = max(|q_b|^2 + |x_j|^2 - 2 (delta_j (q_b . c_j) + min_j sum(q_b)), 0)
 // and differ only in what they write (an epilogue policy, below).
 //
-// The product q . c runs exactly on the int8 tensor cores. The wrapper
-// (ops/limbs.py) writes each query as L signed 8-bit limbs of a
+// The product q . c runs exactly on the int8 tensor cores. A pre-pass
+// (split_limbs_kernel below; ops/limbs.py is its plain version) launched
+// ahead of the main kernel writes each query as L signed 8-bit limbs of a
 // fixed-point integer, q_b ~= s_b * sum_l 256^l limb_l with a power-of-two
 // s_b and one bit of headroom (|Q_b| <= 2^(8L-2)), so each component is
 // off by at most s_b / 2 (~2^-31 of max|q_b| at L = 4). Every limb product
@@ -72,6 +73,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -642,6 +644,95 @@ int launch(const int8_t* limbs, const uint8_t* codes, Params p, int d_pad,
     }
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// -- the query's limbs, split on the card ---------------------------------------
+//
+// What ops/limbs.query_limbs computes with a chain of PyTorch operations,
+// in one launch, so that a K1 / K2 call costs the host two launches and
+// not twenty: one warp per query row takes the row's max |q| (of q rounded
+// to bf16 with `fast`), sum(q) and |q|^2 of the unrounded q (shuffle
+// reductions), the power-of-two scale 2^(ceil(log2 max) - 30) with the
+// exponent floored at -96 and an exact power of two kept one bit below the
+// top limb's range, then Q = rint(q / scale) (exact: a multiplication by a
+// power of two, ties to even as torch.round) and its balanced base-256
+// digits: adding 0x80808080 turns every byte of Q into digit + 128, and
+// flipping the byte's top bit reads it back as the int8 digit. Each lane
+// packs 4 columns of a limb into one 32-bit store; columns past d are
+// zero. limbs s8 [kLimbs, B, d_pad]; the limbs and the scale equal the
+// plain version's bit for bit, the two sums are taken in the warp's order.
+// It is bound by its bytes (4 B d read, 4 B d_pad written) and by launch
+// cost at small B.
+constexpr int kSplitWarps = 4;  // query rows per block
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__global__ void __launch_bounds__(32 * kSplitWarps)
+split_limbs_kernel(const float* __restrict__ q, int8_t* __restrict__ limbs,
+                   float* __restrict__ qscale, float* __restrict__ qsq,
+                   float* __restrict__ qsum, int B, int d, int d_pad, int fast) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kSplitWarps + (threadIdx.x >> 5);
+  if (row >= B) return;  // a whole warp leaves together
+  const float* qr = q + (size_t)row * d;
+  float m = 0.f, s = 0.f, ss = 0.f;
+  for (int k = lane; k < d; k += 32) {
+    const float v = qr[k];
+    s += v;
+    ss += v * v;
+    m = fmaxf(m, fabsf(fast ? round_bf16(v) : v));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  }
+  // ceil(log2 m): m = mant * 2^ex with mant in [0.5, 1), and m is 2^(ex-1)
+  // exactly when mant == 0.5; frexp(0) is (0, 0)
+  int ex;
+  const float mant = frexpf(m, &ex);
+  int e = ex - (mant == 0.5f ? 1 : 0);
+  e = e < -96 ? -96 : e;
+  const int shift = e - (8 * kLimbs - 2);  // in [-126, 98]: both powers normal
+  const float inv = __int_as_float((127 - shift) << 23);
+  if (lane == 0) {
+    qscale[row] = __int_as_float((127 + shift) << 23);
+    qsq[row] = ss;
+    qsum[row] = s;
+  }
+  const size_t limb_words = (size_t)B * d_pad / 4;
+  uint32_t* out = reinterpret_cast<uint32_t*>(limbs) + (size_t)row * d_pad / 4;
+  for (int t = lane; t < d_pad / 4; t += 32) {
+    uint32_t w[kLimbs];
+#pragma unroll
+    for (int l = 0; l < kLimbs; ++l) w[l] = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = 4 * t + c;
+      float v = k < d ? qr[k] : 0.f;
+      if (fast) v = round_bf16(v);
+      const uint32_t u =
+          ((uint32_t)__float2int_rn(v * inv) + 0x80808080u) ^ 0x80808080u;
+#pragma unroll
+      for (int l = 0; l < kLimbs; ++l) w[l] |= ((u >> (8 * l)) & 0xffu) << (8 * c);
+    }
+#pragma unroll
+    for (int l = 0; l < kLimbs; ++l) out[l * limb_words + t] = w[l];
+  }
+}
+
+// Launches the limb split on `stream`; returns a cudaError_t (0 = ok).
+inline int split_limbs(const float* q, int8_t* limbs, float* qscale, float* qsq,
+                       float* qsum, int B, int d, int d_pad, int fast,
+                       cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (d < 0 || d_pad % 32 || d_pad < d) return (int)cudaErrorInvalidValue;
+  split_limbs_kernel<<<(B + kSplitWarps - 1) / kSplitWarps, 32 * kSplitWarps, 0,
+                       stream>>>(q, limbs, qscale, qsq, qsum, B, d, d_pad, fast);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dist

@@ -10,7 +10,7 @@
 // reaches device memory.
 //
 // The product, its exactness argument and the TMA / wgmma pipeline are
-// csrc/dist_core.cuh's (query limbs from ops/limbs.py, L = 4). A code tile
+// csrc/dist_core.cuh's (query limbs split on the card ahead of it, L = 4). A code tile
 // is one group, so the epilogue needs nothing across tiles: each consumer
 // thread evaluates the affine form on its 2 queries x 32 columns of the
 // 64 x 128 tile with two fused multiply-adds a pair (not the plain
@@ -112,17 +112,22 @@ struct GroupMin {
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns a cudaError_t (0 = ok).
-// limbs s8 [4, B, d_pad] and qscale [B] come from ops/limbs.py (d <= 768);
-// codes u8 [N, d_g] (d_g a multiple of 16, <= d_pad); N a multiple of
-// 128, pad rows carrying normsq = +inf.
-extern "C" int group_min_d2_launch(const int8_t* limbs, const float* qscale,
-                                   const float* qsq, const float* qsum,
+// Splits q f32 [B, d] into limbs (dist::split_limbs, into the caller's
+// scratch: limbs s8 [4, B, d_pad], qscale, qsq, qsum f32 [B]; d_pad from
+// ops/limbs.padded_dim, d <= 768), then launches the kernel behind it on
+// `stream`; returns a cudaError_t (0 = ok). codes u8 [N, d_g] (d_g a
+// multiple of 16, <= d_pad); N a multiple of 128, pad rows carrying
+// normsq = +inf.
+extern "C" int group_min_d2_launch(const float* q, int8_t* limbs, float* qscale,
+                                   float* qsq, float* qsum,
                                    const uint8_t* codes, const float* scales,
                                    const float* normsq, float* out_d,
-                                   int32_t* out_i, int B, int N, int d_pad,
-                                   int d_g, void* stream) {
+                                   int32_t* out_i, int B, int N, int d,
+                                   int d_pad, int d_g, void* stream) {
   if (N % dist::kRows) return (int)cudaErrorInvalidValue;
+  const int e = dist::split_limbs(q, limbs, qscale, qsq, qsum, B, d, d_pad, 0,
+                                  (cudaStream_t)stream);
+  if (e != 0) return e;
   dist::Params p = {};
   p.qscale = qscale;
   p.qsq = qsq;

@@ -5,12 +5,12 @@
 // (pairwise_l2sq_pallas / _l2_kernel). For f32 queries q[B, d] and u8 codes
 // c[N, d] quantized per row as x = delta * c + min, it writes
 //     out[b, j] = max(|q_b|^2 + |x_j|^2 - 2 (delta_j (q_b . c_j) + min_j sum(q_b)), 0)
-// as a dense f32 [B, N] matrix. With fast=True the wrapper rounds q to bf16
-// before it splits q into limbs, so only the product sees the rounded q;
+// as a dense f32 [B, N] matrix. With fast=True the limb split rounds q to bf16
+// before it takes the limbs, so only the product sees the rounded q;
 // |q|^2 and sum(q) always come from the unrounded q.
 //
 // The product, its exactness argument and the TMA / wgmma pipeline are
-// csrc/dist_core.cuh's (query limbs from ops/limbs.py, L = 4). The
+// csrc/dist_core.cuh's (query limbs split on the card ahead of it, L = 4). The
 // epilogue evaluates the affine form in registers and sends the tile out
 // through shared memory: each warp owns 16 queries x 128 rows of the tile
 // and stages 32 columns at a time (a 16 x 40-float buffer, the padding
@@ -93,14 +93,21 @@ struct Dense {
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns a cudaError_t (0 = ok).
-// limbs s8 [4, B, d_pad] and qscale [B] come from ops/limbs.py (d <= 768);
-// codes u8 [N, d_g] (d_g a multiple of 16, <= d_pad); out f32 [B, N].
-extern "C" int pairwise_l2sq_launch(const int8_t* limbs, const float* qscale,
-                                    const float* qsq, const float* qsum,
+// Splits q f32 [B, d] into limbs (dist::split_limbs, into the caller's
+// scratch: limbs s8 [4, B, d_pad], qscale, qsq, qsum f32 [B]; d_pad from
+// ops/limbs.padded_dim, d <= 768; with `fast` the limbs of q rounded to
+// bf16), then launches the kernel behind it on `stream`; returns a
+// cudaError_t (0 = ok). codes u8 [N, d_g] (d_g a multiple of 16,
+// <= d_pad); out f32 [B, N].
+extern "C" int pairwise_l2sq_launch(const float* q, int8_t* limbs, float* qscale,
+                                    float* qsq, float* qsum,
                                     const uint8_t* codes, const float* scales,
                                     const float* normsq, float* out, int B,
-                                    int N, int d_pad, int d_g, void* stream) {
+                                    int N, int d, int d_pad, int d_g, int fast,
+                                    void* stream) {
+  const int e = dist::split_limbs(q, limbs, qscale, qsq, qsum, B, d, d_pad, fast,
+                                  (cudaStream_t)stream);
+  if (e != 0) return e;
   dist::Params p = {};
   p.qscale = qscale;
   p.qsq = qsq;

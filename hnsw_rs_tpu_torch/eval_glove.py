@@ -52,7 +52,9 @@ def main(argv=None) -> int:
     else:
         index = HNSW(args.m, ef_cons=args.ef_cons, dim=stored.shape[1],
                      device=device)
-        kw = {}
+        kw = {"build_expand": args.build_expand}
+        if args.build_seeded:
+            kw["build_seeded"] = True
         if args.cluster_build:
             kw["cluster_build"] = True
         if args.build_mi is not None:
@@ -70,8 +72,8 @@ def main(argv=None) -> int:
     index.print_index()
     truth = brute_force_nns(queries, index.points.codes, index.points.scales,
                             args.k)
-    if args.pivots > 0:
-        index.finalize(pivots=args.pivots)
+    if args.expand > 1 or args.pivots > 0 or args.pq_m > 0:
+        index.finalize(expand=args.expand, pivots=args.pivots, pq_m=args.pq_m)
     print(f"\n ef    recall@{args.k}   QPS   route={index.serving_route()}")
     batch = args.batch or len(queries)
     big = np.tile(queries, (-(-batch // len(queries)), 1))[:batch]

@@ -2,12 +2,12 @@
 (the wave builder, or the cluster-bulk builder with automatic
 pivot-seeded serving), incremental inserts batched into waves,
 hierarchical-descent serving over packed or plain layer-0 rows,
-``finalize`` into pivot-seeded serving, and persistence in the JAX
-package's ``hnsw_rs_tpu.v1`` format, so either package loads an index the
-other saved.
+``finalize`` into pivot-seeded, shortlist-probed or PQ-coded serving
+(each with E>1 expansion), NN-descent ``refine``, and persistence in the
+JAX package's ``hnsw_rs_tpu.v1`` format, so either package loads an index
+the other saved.
 
-Not ported yet: E>1 expansion, the PQ and shortlist-probe serving modes,
-the cosine metric and ``refine``.
+Not ported yet: the cosine metric.
 """
 
 from __future__ import annotations
@@ -28,9 +28,13 @@ from ..params import Params
 from ..search import (
     ann_search,
     ann_search_packed,
+    ann_search_pq,
     ann_search_seeded,
     ann_search_seeded_plain,
+    ann_search_seeded_probe,
+    ann_search_seeded_probe_packed,
     pack_layer,
+    pack_layer_pq,
 )
 from ..store import PointStore
 
@@ -49,6 +53,21 @@ class Point:
     id: int
     level: int
     values: np.ndarray
+
+
+def _build_shortlist(vecs, codes, scales, t: int, chunk: int = 2048):
+    """Per-pivot top-``t`` shortlists (``finalize(pivot_shortlist=T)``):
+    each pivot's t nearest stored points through tiled flat searches, so
+    [P, N] never materializes. The pivots go through in chunks: one
+    tiled step holds a [chunk, tile] f32 distance block (1 GiB at 2,048
+    pivots against a 131,072-row tile). Returns i32[P, t]."""
+    from ..ops.distance import point_normsq
+    from .flat import _flat_search_tiled
+
+    normsq = point_normsq(codes, scales)
+    parts = [_flat_search_tiled(vecs[lo:lo + chunk], codes, scales, normsq, t)[1]
+             for lo in range(0, vecs.shape[0], chunk)]
+    return torch.cat(parts).to(torch.int32)
 
 
 class HNSW:
@@ -79,10 +98,23 @@ class HNSW:
         # and serving uses them only while that count is current
         self._packed0 = None
         self._packed_n = -1
+        # beam entries popped per serving iteration (search._beam_loop)
+        self.serve_expand = 1
         # pivot-seeded serving: (pivot ids i32[P], pivot vectors f32[P, d])
         # and the point count they were chosen at
         self._pivots = None
         self._pivots_n = -1
+        # per-pivot shortlists i32[P, T] (finalize(pivot_shortlist=T)) and
+        # their packed rows (pack_layer over the shortlist: it is
+        # adjacency-shaped); serve_probes = pivots probed per query
+        self._pivot_shortlist = None
+        self._pivot_sl_pack = None
+        self.serve_probes = 16
+        # PQ-coded serving (finalize(pq_m=...)): (codebooks, pq codes,
+        # PQ-packed layer 0, OPQ rotation or None) and their point count
+        self._pq = None
+        self._pq_n = -1
+        self.pq_rerank = 0  # exact re-score width; 0 means max(4k, ef)
         # per-cluster representatives from the cluster build
         self._cluster_pivots = None
         # seconds per build phase of the last insert_bulk
@@ -132,8 +164,10 @@ class HNSW:
         (``finalize`` upgrades it). On a built index the new points are
         wave-inserted per layer, top down (:meth:`_extend_built`).
         ``build_kwargs``: ``build_index``'s options (``max_iters``,
-        ``wave_base``/``wave_growth``/``wave_cap``, ``packed_build``,
-        ``pack_lag``, ``cluster_build``, ``cluster_kwargs``)."""
+        ``wave_base``/``wave_growth``/``wave_cap``, ``build_expand``,
+        ``wave_sort``, ``build_seeded``, ``build_pivot_cap``,
+        ``packed_build``, ``pack_lag``, ``cluster_build``,
+        ``cluster_kwargs``)."""
         self.flush()
         x = torch.as_tensor(np.asarray(vectors, np.float32), device=self.device)
         x = torch.atleast_2d(x)
@@ -254,27 +288,129 @@ class HNSW:
 
     # -- serving -----------------------------------------------------------
 
-    def finalize(self, pivots: int = 0, packed: bool = True,
+    def refine(self, rounds: int = 1, layer: int = 0, hop_w: int = 8,
+               pool_p: int = 192, use_alg4: bool = True,
+               batch: int = 1024) -> "HNSW":
+        """Synchronous NN-descent refinement of a built layer
+        (``refine.refine_layer``): every node re-selects its out-row from
+        its 2-hop neighborhood through the Algorithm-4 accept chain. Lifts
+        graph quality where the data's blob granularity fights the
+        cluster-bulk build's k-means pools (heavy-tailed data). Drops the packed and
+        PQ layouts of a refined layer 0 (re-run :meth:`finalize`); the
+        pivots stay valid, they are a property of the points and not of
+        the edges. Returns self."""
+        from ..refine import refine_layer
+
+        self.flush()
+        if len(self) == 0:
+            return self
+        refine_layer(self.graph, self.points, layer_nb=layer, rounds=rounds,
+                     hop_w=hop_w, pool_p=pool_p, use_alg4=use_alg4, batch=batch)
+        if layer == 0:
+            self._packed0, self._packed_n = None, -1
+            self._pq, self._pq_n = None, -1
+        return self
+
+    def _train_pq(self, pq_m: int, pq_iters: int, pq_opq: bool, pq_bits: int):
+        """Train the product quantizer on the stored points, encode them
+        and pack layer 0 as PQ rows: ``self._pq``."""
+        from ..ops.pq import encode_pq, opq_train, pack_nibbles, train_pq
+
+        n = len(self)
+        m_sub = pq_m if pq_bits == 8 else 2 * pq_m
+        nv = 1 << pq_bits
+        codes, scales = self.points.codes[:n], self.points.scales[:n]
+        # train on a deterministic even subsample: a Lloyd step holds
+        # [Ntrain, m_sub, nv] temps, tens of GB at a million rows, and 64k
+        # samples train codebooks to the same distortion
+        ts = min(n, 65536)
+        if ts < n:
+            pick = torch.from_numpy(np.linspace(0, n - 1, ts).round().astype(
+                np.int64)).to(self.device)
+            sample = dequantize(codes[pick], scales[pick])
+        else:
+            sample = dequantize(codes, scales)
+        rot = None
+        if pq_opq:
+            rot, cb = opq_train(sample, m_sub, pq_iters=pq_iters, seed=0,
+                                train_n=ts, nv=nv)
+        else:
+            cb = train_pq(sample, m_sub, iters=pq_iters, seed=0, nv=nv)
+        del sample
+        # encode in chunks for the same temp reason
+        ch = 1 << 16
+        parts = []
+        for lo in range(0, n, ch):
+            x = dequantize(codes[lo:lo + ch], scales[lo:lo + ch])
+            parts.append(encode_pq(x if rot is None else x @ rot, cb))
+        pq_codes = torch.cat(parts)
+        if pq_bits == 4:
+            # stored and packed nibble-packed: pq_m bytes per point either
+            # way (search dispatches on the codebook size)
+            pq_codes = pack_nibbles(pq_codes)
+        packed_pq = pack_layer_pq(self.graph.get_layer(0)[:n], pq_codes)
+        self._pq = (cb, pq_codes, packed_pq, rot)
+        self._pq_n = n
+
+    def finalize(self, expand: int = 1, pivots: int = 0, packed: bool = True,
+                 pq_m: int = 0, pq_iters: int = 12, pq_rerank: int = 0,
+                 pq_opq: bool = False, pq_bits: int = 8,
                  pivot_fill: str = "cover", pivot_cover: float = 0.25,
-                 pq_m: int = 0, pivot_shortlist: int = 0) -> "HNSW":
-        """Set the serving mode. ``packed=True`` builds the packed
-        layer-0 rows (``cap*(dim+12)`` bytes per point, one gather per
-        beam expansion); ``pivots > 0`` enables pivot-seeded serving from
-        a table of that many points: the cluster representatives and
-        level picks first (capped at ``1 - pivot_cover`` of the budget
-        under ``pivot_fill="cover"``), then k-center picks over the points
-        (``"cover"``) or evenly strided ids (``"stride"``). ``pivots=0``
-        turns pivot seeding off. Re-run after inserts: stale rows and
-        pivots are never served. The PQ and shortlist modes are not
-        ported yet. Returns self."""
-        if pq_m or pivot_shortlist:
-            raise NotImplementedError(
-                "PQ and shortlist-probe serving are not ported yet "
-                "(ROADMAP.md queue A, item 10)")
+                 pivot_shortlist: int = 0) -> "HNSW":
+        """Set the serving mode; every call sets it from its arguments
+        alone (``pivots`` is absolute state, not a delta: ``finalize(
+        expand=E)`` with the default ``pivots=0`` turns a pivot-seeded mode
+        off). Re-run after inserts: stale rows and pivots are never
+        served. Returns self.
+
+        ``packed=True`` builds the packed layer-0 rows (``cap*(dim+12)``
+        bytes per point, one gather per beam expansion). ``expand`` E > 1
+        pops E beam entries per lockstep iteration (``search._beam_loop``).
+
+        ``pivots > 0`` enables pivot-seeded serving from a table of that
+        many points: the cluster representatives and level picks first
+        (capped at ``1 - pivot_cover`` of the budget under
+        ``pivot_fill="cover"``), then k-center picks over the points
+        (``"cover"``) or evenly strided ids (``"stride"``).
+
+        ``pivot_shortlist=T`` (with ``pivots`` > 0) also builds each
+        pivot's top-T nearest-points shortlist (one tiled flat search) and
+        switches serving to the probed mode
+        (``search.ann_search_seeded_probe_packed``): the ``serve_probes``
+        nearest pivots' shortlist members enter the beam exactly scored at
+        iteration 0, the fix for walk-limited regimes.
+
+        ``pq_m > 0`` (requires ``pivots`` > 0) enables PQ-coded serving
+        instead: a product quantizer of ``pq_m`` bytes per point is trained
+        on the stored points (seed-fixed, so safe to re-run after
+        :meth:`load`), layer 0 is packed as ``cap*(pq_m+4)`` bytes per
+        point, and queries run ADC beams with an exact re-score of the top
+        ``pq_rerank`` (default ``max(4k, ef)``) survivors
+        (``search.ann_search_pq``). It replaces the exact packed table
+        (``packed`` is forced off). ``pq_opq`` trains an OPQ rotation
+        first; ``pq_bits=4`` keeps ``pq_m`` bytes per point but splits
+        them into ``2 * pq_m`` subspaces with 16-entry codebooks,
+        nibble-packed."""
         if pivot_fill not in ("cover", "stride"):
             raise ValueError(f"unknown pivot_fill {pivot_fill!r}")
         self.flush()
         n = len(self)
+        if pq_m > 0:
+            if pivots <= 0:
+                raise ValueError("pq_m > 0 requires pivots > 0 "
+                                 "(PQ serving seeds from the pivot table)")
+            if pq_bits not in (4, 8):
+                raise ValueError(f"pq_bits must be 4 or 8, got {pq_bits}")
+            m_sub = pq_m if pq_bits == 8 else 2 * pq_m
+            if self.params.dim % m_sub != 0:
+                raise ValueError(f"{m_sub} subspaces (pq_m {pq_m} at {pq_bits} "
+                                 f"bits) must divide dim {self.params.dim}")
+            packed = False  # the PQ pack replaces the exact-code pack
+            if n > 0:
+                self._train_pq(pq_m, pq_iters, pq_opq, pq_bits)
+            self.pq_rerank = int(pq_rerank)
+        else:
+            self._pq, self._pq_n = None, -1
         if not packed:
             self._packed0, self._packed_n = None, -1
         elif len(self.graph) > 0 and self._packed_n != n:
@@ -283,8 +419,11 @@ class HNSW:
             self._packed0 = pack_layer(self.graph.get_layer(0),
                                        self.points.codes, self.points.scales)
             self._packed_n = n
+        self.serve_expand = int(expand)
         if pivots <= 0 or n == 0:
-            self._pivots, self._pivots_n = None, -1
+            if pivots == 0:
+                self._pivots, self._pivots_n = None, -1
+                self._pivot_shortlist = self._pivot_sl_pack = None
             return self
         budget = min(pivots, n)
         cap = budget if pivot_fill == "stride" else max(
@@ -331,6 +470,14 @@ class HNSW:
                     np.int64)
             ids = np.concatenate([np.asarray(ids, np.int64), fill])
         self._set_pivots(np.asarray(ids))
+        self._pivot_shortlist = self._pivot_sl_pack = None
+        if pivot_shortlist > 0:
+            codes, scales = self.points.codes[:n], self.points.scales[:n]
+            self._pivot_shortlist = _build_shortlist(
+                self._pivots[1], codes, scales, int(pivot_shortlist))
+            if packed:
+                self._pivot_sl_pack = pack_layer(self._pivot_shortlist, codes,
+                                                 scales)
         return self
 
     def _set_pivots(self, ids: np.ndarray) -> None:
@@ -352,18 +499,28 @@ class HNSW:
         return self._f32_table
 
     def serving_route(self) -> str:
-        """The ``ann_batch`` branch the index serves through now:
-        ``"seeded"`` (pivot seeds, packed rows), ``"packed"``
+        """The ``ann_batch`` branch the index serves through now, in the
+        order they are tried: ``"pq"`` (pivot seeds, ADC beam over PQ
+        rows, exact rerank), ``"probe_packed"`` and ``"probe"`` (pivot
+        seeds plus the probed shortlists, packed or narrow, over packed
+        rows), ``"seeded"`` (pivot seeds, packed rows), ``"packed"``
         (hierarchical descent, packed layer-0 rows), ``"seeded_plain"``
         (pivot seeds, plain gathers) or ``"plain"`` (hierarchical
-        descent, plain gathers). Packed rows and pivots serve only while
-        they were made at the current point count: an insert makes them
-        stale until :meth:`finalize`."""
+        descent, plain gathers). Packed rows, PQ rows and pivots serve
+        only while they were made at the current point count: an insert
+        makes them stale until :meth:`finalize`."""
         self.flush()
         pack_fresh = self._packed0 is not None and self._packed_n == len(self)
         piv_fresh = self._pivots is not None and self._pivots_n == len(self)
+        pq_fresh = self._pq is not None and self._pq_n == len(self)
+        if pq_fresh and piv_fresh:
+            return "pq"
+        if pack_fresh and piv_fresh:
+            if self._pivot_sl_pack is not None:
+                return "probe_packed"
+            return "probe" if self._pivot_shortlist is not None else "seeded"
         if pack_fresh:
-            return "seeded" if piv_fresh else "packed"
+            return "packed"
         return "seeded_plain" if piv_fresh else "plain"
 
     def ann_by_vector(self, vector, n: int, ef: int) -> np.ndarray:
@@ -385,19 +542,39 @@ class HNSW:
         if max_iters is None:
             max_iters = 2 * ef + 16
         q = dequantize(*quantize(x))
-        if route in ("seeded", "seeded_plain"):
+        e = self.serve_expand
+        if route not in ("packed", "plain"):
             piv_ids, piv_vecs = self._pivots
-        if route == "seeded":
+        if route == "pq":
+            cb, pq_codes, packed_pq, rot = self._pq
+            # default: exact-rescore the whole beam, one [B, ef] gather at
+            # the end of the query; ADC ordering noise inside a
+            # neighborhood is the PQ mode's recall wall
+            d, i = ann_search_pq(
+                packed_pq, cb, pq_codes, piv_ids, piv_vecs, self.points.codes,
+                self.points.scales, q, ef, n, max_iters,
+                self.pq_rerank or max(4 * n, ef), e, rot)
+        elif route == "probe_packed":
+            d, i = ann_search_seeded_probe_packed(
+                self._packed0, piv_ids, piv_vecs, self._pivot_sl_pack,
+                self._pivot_shortlist.shape[1], self.params.dim, q, ef, n,
+                max_iters, self.serve_probes, e)
+        elif route == "probe":
+            d, i = ann_search_seeded_probe(
+                self._packed0, piv_ids, piv_vecs, self._pivot_shortlist,
+                self.points.codes, self.points.scales, q, ef, n, max_iters,
+                self.serve_probes, e)
+        elif route == "seeded":
             d, i = ann_search_seeded(self._packed0, piv_ids, piv_vecs, q, ef,
-                                     n, max_iters)
+                                     n, max_iters, e)
         elif route == "packed":
             d, i = ann_search_packed(
                 self.graph.adjs[1:], self._packed0, self.points.codes,
-                self.points.scales, q, self.params.ep, ef, n, max_iters)
+                self.points.scales, q, self.params.ep, ef, n, max_iters, e)
         elif route == "seeded_plain":
             d, i = ann_search_seeded_plain(
                 self.graph.get_layer(0), self._serving_table(),
-                self.points.scales, piv_ids, piv_vecs, q, ef, n, max_iters)
+                self.points.scales, piv_ids, piv_vecs, q, ef, n, max_iters, e)
         else:
             d, i = ann_search(self.graph.adjs, self._serving_table(),
                               self.points.scales, q, self.params.ep, ef, n,

@@ -14,8 +14,8 @@ imported.
 
 The kernels' wrappers share :func:`check_inputs` (the (q, codes, scales,
 normsq) argument rules) and :func:`launch` (load, launch on the current
-stream, raise on a CUDA error); what they pass is prepared by
-``ops/limbs.tensor_core_operands``.
+stream, raise on a CUDA error); the scratch and the aligned codes they
+pass come from ``ops/limbs.query_workspace`` and ``aligned_codes``.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_DIM = 768  # csrc/dist_core.cuh: dist::kMaxDim
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -94,12 +95,14 @@ def load(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     """The C function ``symbol`` of ``csrc/<name>.cu``'s library (built
     first if needed), with its argument types set and an ``int`` result:
     the CUDA error code of the launch."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build(name)[0]))
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)[0]))
+        fn = _functions[name, symbol] = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return fn
 
 

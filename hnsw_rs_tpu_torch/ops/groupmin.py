@@ -5,8 +5,8 @@ Exact top-k in two passes, as in the JAX package:
 
 1. :func:`group_min_d2` — per-128-row-group (d2, row) minima [B, N/128].
    On a CUDA tensor it launches the hand-written kernel in
-   ``csrc/group_min.cu`` (exact int8 tensor-core products of the query's
-   limbs, ``ops/limbs.py``, and the codes); on a CPU tensor it runs
+   ``csrc/group_min.cu`` (the query's limbs split on the card, then exact
+   int8 tensor-core products of limbs and codes: two kernels a call); on a CPU tensor it runs
    :func:`group_min_d2_plain`.
 2. :func:`rescore_groups` — the top ``k + _MARGIN`` groups by (min d2,
    group) provably hold every true top-k element (a group holding one has
@@ -27,13 +27,13 @@ import torch
 
 from . import cuda_build
 from .distance import pairwise_l2sq_mxu
-from .limbs import tensor_core_operands
+from .limbs import aligned_codes, query_operands, query_workspace
 from .topk import INF, PAD_ID, sort_dist_id
 
 GROUP = 128
 _MARGIN = 8  # extra groups rescored in pass 2 (ulp safety at the boundary)
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def build() -> Path:
@@ -67,14 +67,16 @@ def group_min_d2(
     out_i = torch.empty((b, n // GROUP), dtype=torch.int32, device=q.device)
     if b == 0 or n == 0:
         return out_d, out_i
-    limbs, qscale, qsq, qsum, codes_g, scales_g, normsq_g, d_pad, d_g = (
-        tensor_core_operands(q, codes, scales, normsq))
+    limbs, sums = query_workspace(b, q.shape[1], q.device)
+    codes_g, scales_g, normsq_g, d_g = aligned_codes(codes, scales, normsq)
+    sp = sums.data_ptr()  # qscale, qsq, qsum: B floats each
     cuda_build.launch(
         "group_min", "group_min_d2_launch", _ARGTYPES, q.device,
-        limbs.data_ptr(), qscale.data_ptr(), qsq.data_ptr(), qsum.data_ptr(),
-        codes_g.data_ptr(), scales_g.data_ptr(), normsq_g.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), b, n, d_pad, d_g,
+        q.data_ptr(), limbs.data_ptr(), sp, sp + 4 * b, sp + 8 * b, codes_g.data_ptr(), scales_g.data_ptr(),
+        normsq_g.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), b, n,
+        q.shape[1], limbs.shape[2], d_g,
     )
+    query_operands.launches += 1  # the limb split runs inside that call
     group_min_d2.launches += 1
     return out_d, out_i
 

@@ -8,8 +8,8 @@ uint8 per-vector-quantized points by the affine identity
     |q - (delta*c + min)|^2 = |q|^2 + |x|^2 - 2*(delta*(q.c) + min*sum(q)),
 
 clamped at 0. On a CUDA tensor it launches the hand-written kernel in
-``csrc/l2_kernel.cu`` (exact int8 tensor-core products of the query's
-limbs, ``ops/limbs.py``, and the codes; built and loaded by
+``csrc/l2_kernel.cu`` (the query's limbs split on the card, then exact
+int8 tensor-core products of limbs and codes; built and loaded by
 :mod:`.cuda_build`); on a CPU tensor it runs :func:`pairwise_l2sq_plain`. The Pallas kernel's ``tb``,
 ``tn`` and ``interpret`` arguments were Mosaic tiling and interpret-mode
 knobs and have no counterpart; the CUDA kernel masks its own ragged
@@ -26,9 +26,9 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .limbs import tensor_core_operands
+from .limbs import aligned_codes, query_operands, query_workspace
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def pairwise_l2sq_kernel(
@@ -52,14 +52,16 @@ def pairwise_l2sq_kernel(
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
     if b == 0 or n == 0:
         return out
-    limbs, qscale, qsq, qsum, codes_g, scales_g, normsq_g, d_pad, d_g = (
-        tensor_core_operands(q, codes, scales, normsq, fast))
+    limbs, sums = query_workspace(b, q.shape[1], q.device)
+    codes_g, scales_g, normsq_g, d_g = aligned_codes(codes, scales, normsq)
+    sp = sums.data_ptr()  # qscale, qsq, qsum: B floats each
     cuda_build.launch(
         "l2_kernel", "pairwise_l2sq_launch", _ARGTYPES, q.device,
-        limbs.data_ptr(), qscale.data_ptr(), qsq.data_ptr(), qsum.data_ptr(),
-        codes_g.data_ptr(), scales_g.data_ptr(), normsq_g.data_ptr(),
-        out.data_ptr(), b, n, d_pad, d_g,
+        q.data_ptr(), limbs.data_ptr(), sp, sp + 4 * b, sp + 8 * b, codes_g.data_ptr(), scales_g.data_ptr(),
+        normsq_g.data_ptr(), out.data_ptr(), b, n, q.shape[1], limbs.shape[2],
+        d_g, int(fast),
     )
+    query_operands.launches += 1  # the limb split runs inside that call
     pairwise_l2sq_kernel.launches += 1
     return out
 

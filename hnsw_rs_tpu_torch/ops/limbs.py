@@ -1,5 +1,8 @@
 """Query limbs: the exact integer form in which the tensor-core distance
-kernels (``csrc/dist_core.cuh``) take a float32 query.
+kernels (``csrc/dist_core.cuh``) take a float32 query. On the card the
+split is one kernel (``split_limbs_kernel`` there), launched by the K1 and
+K2 C entry points ahead of their own; :func:`query_limbs` here is its
+plain version, and what CPU tensors take.
 
 A query row q_b is written as a fixed-point integer Q_b = round(q_b / s_b)
 with a power-of-two scale s_b, and Q_b is split into ``n_limbs`` balanced
@@ -23,7 +26,11 @@ top limb down,
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import cuda_build
 
 N_LIMBS = 4  # limbs per query that the kernels take (dist::kLimbs)
 K_STEP = 32  # the int8 tensor-core product's depth: d is padded to a multiple
@@ -75,21 +82,68 @@ def query_limbs(q: torch.Tensor, n_limbs: int = N_LIMBS) -> tuple[torch.Tensor, 
     return limbs.view(torch.int8), scale
 
 
-def tensor_core_operands(q, codes, scales, normsq, fast: bool = False):
-    """What the tensor-core kernels take: (limbs s8[L, B, d_pad],
-    qscale f32[B], qsq f32[B], qsum f32[B], codes u8[N, d_g], scales,
-    normsq, d_pad, d_g). |q|^2 and sum(q) come from the unrounded q; with
-    ``fast`` the limbs are those of q rounded to bf16. TMA needs 16-byte
-    row strides and base addresses, so codes whose d is not a multiple of
-    16 are copied to rows of ``d_g`` = d rounded up to 16 bytes (zero
-    padded), and a misaligned tensor is copied."""
+def query_operands_plain(q: torch.Tensor, fast: bool = False):
+    """Plain PyTorch version of :func:`query_operands`: (limbs s8[L, B,
+    d_pad], qscale f32[B], qsq f32[B], qsum f32[B]). |q|^2 and sum(q) come
+    from the unrounded q; with ``fast`` the limbs are those of q rounded
+    to bf16."""
     qp = q.to(torch.bfloat16).to(torch.float32) if fast else q
     limbs, qscale = query_limbs(qp)
+    return limbs, qscale, (q * q).sum(dim=-1), q.sum(dim=-1)
+
+
+def query_workspace(b: int, d: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uninitialized (limbs s8[L, B, d_pad], sums f32[3, B]) for the limb
+    split kernel to fill (sums: qscale, qsq, qsum), cut from one
+    allocation: the limbs first, so both parts start 16-byte aligned."""
+    nl = N_LIMBS * b * padded_dim(d)
+    ws = torch.empty(nl + 12 * b, dtype=torch.uint8, device=device)
+    return (ws[:nl].view(torch.int8).view(N_LIMBS, b, -1),
+            ws[nl:].view(torch.float32).view(3, b))
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def query_operands(q: torch.Tensor, fast: bool = False):
+    """What the tensor-core kernels take in place of a float32 query
+    ``q`` [B, d]: (limbs s8[L, B, d_pad], qscale f32[B], qsq f32[B], qsum
+    f32[B]). A CUDA tensor launches the limb split kernel of
+    ``csrc/dist_core.cuh`` through ``csrc/query_limbs.cu`` (counted in
+    ``query_operands.launches``; the K1 and K2 wrappers run the same
+    kernel inside their own C call and count it here too); a CPU tensor
+    takes :func:`query_operands_plain`. Limbs and scale are equal bit for
+    bit both ways; the two sums are taken in the kernel's order."""
+    if q.dim() != 2 or q.dtype != torch.float32 or not q.is_contiguous():
+        raise ValueError("q must be contiguous float32 [B, d]")
+    if q.device.type == "cpu":
+        return query_operands_plain(q, fast)
+    b, d = q.shape
+    if d > cuda_build.MAX_DIM:
+        raise ValueError(f"d={d} exceeds the kernels' limit of {cuda_build.MAX_DIM}")
+    limbs, sums = query_workspace(b, d, q.device)
+    if b:
+        cuda_build.launch(
+            "query_limbs", "query_limbs_launch", _ARGTYPES, q.device,
+            q.data_ptr(), limbs.data_ptr(), sums.data_ptr(),
+            sums.data_ptr() + 4 * b, sums.data_ptr() + 8 * b, b, d,
+            limbs.shape[2], int(fast))
+        query_operands.launches += 1
+    return limbs, sums[0], sums[1], sums[2]
+
+
+query_operands.launches = 0
+
+
+def aligned_codes(codes, scales, normsq):
+    """(codes u8[N, d_g], scales, normsq, d_g) as TMA takes them: 16-byte
+    row strides and base addresses. Codes whose d is not a multiple of 16
+    are copied to rows of ``d_g`` = d rounded up to 16 bytes (zero
+    padded), and a misaligned tensor is copied."""
     d = codes.shape[1]
     d_g = -(-d // 16) * 16
     if d_g != d or codes.data_ptr() % 16:
         codes = torch.nn.functional.pad(codes, (0, d_g - d))
     scales, normsq = (t if t.data_ptr() % 16 == 0 else t.clone()
                       for t in (scales, normsq))
-    return (limbs, qscale, (q * q).sum(dim=-1), q.sum(dim=-1), codes, scales,
-            normsq, limbs.shape[2], d_g)
+    return codes, scales, normsq, d_g

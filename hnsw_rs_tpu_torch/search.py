@@ -11,11 +11,17 @@ beam* or *in a ring of the last ``ring_size`` discovered ids*: a node once
 evicted from the top-ef can never re-enter it, so a rediscovered node
 costs one wasted distance row at worst.
 
-Only one entry is expanded per iteration (E=1, the reference's exact
-pop-one semantics); the E>1 serving mode and the PQ and probed layouts
-are not ported yet. The JAX package's ``while_loop``s are Python loops
-here, with one host read of the convergence flag per iteration and the
-same iteration bounds.
+One entry is expanded per iteration at E=1 (the reference's exact
+pop-one semantics); ``expand_e`` > 1 pops the E best unexpanded entries
+together, the lockstep serving mode. Beside the exact packed rows there
+are the PQ-packed layout (ADC scores from a per-query table, exact
+rerank at the end) and the shortlist-probe seed stage (each probed
+pivot's nearest stored points enter the beam exactly scored at
+iteration 0). The JAX package's ``while_loop``s are Python loops here,
+with one host read of the convergence flag per iteration and the same
+iteration bounds. Eager PyTorch fuses nothing, so the probe stages run
+over chunks of queries (:func:`_query_chunk`) where the JAX package
+relies on XLA to keep their temporaries small.
 """
 
 from __future__ import annotations
@@ -23,10 +29,12 @@ from __future__ import annotations
 import torch
 
 from .ops.distance import l2sq
+from .ops.pq import adc_score, adc_score16, pq_lut
 from .ops.quant import dequantize
 from .ops.topk import (
     INF,
     PAD_ID,
+    dedup_ids,
     merge_sorted_dist_id,
     sort_dist_id,
     topk_lowest,
@@ -114,16 +122,29 @@ def init_beam(entry_d2: torch.Tensor, entry_ids: torch.Tensor, ef: int):
 def _beam_loop(fetch, n: int, cap: int, q: torch.Tensor,
                entry_d2: torch.Tensor, entry_ids: torch.Tensor, ef: int,
                max_iters: int, forbid: torch.Tensor | None = None,
-               ring_size: int = 0):
-    """Shared flagged-beam loop (E=1). ``fetch(cand_ids [B]) -> (nbrs
-    [B, cap], vecs f32[B, cap, d])`` supplies each expanded node's
-    neighbor ids and dequantized vectors. Returns the sorted beam
-    ``(d2 [B, ef], ids [B, ef])``. The loop ends when every query has
-    converged or after ``max_iters`` iterations (one host sync per
-    iteration reads the convergence flag)."""
+               ring_size: int = 0, expand_e: int = 1, scored: bool = False):
+    """Shared flagged-beam loop. ``fetch(cand_ids [B]) -> (nbrs [B, cap],
+    vecs f32[B, cap, d])`` supplies each expanded node's neighbor ids and
+    dequantized vectors. Returns the sorted beam ``(d2 [B, ef], ids
+    [B, ef])``. The loop ends when every query has converged or after
+    ``max_iters`` iterations (one host sync per iteration reads the
+    convergence flag).
+
+    ``scored=True`` switches the fetch contract to ``fetch(cand_ids [B])
+    -> (nbrs [B, cap], d2 f32[B, cap])``: the candidates arrive already
+    scored (the PQ layout, where no candidate vector exists) and ``q``
+    only gives the batch size.
+
+    ``expand_e`` > 1 expands the E best unexpanded entries per iteration
+    (``fetch`` then sees [B*E] and returns [B*E, cap] shapes). E=1 is the
+    reference's exact pop-one semantics (``searcher.rs:35-44``); E>1 is a
+    lockstep serving mode: the per-iteration fixed costs (sorts, launches,
+    the host read) amortize over E pops, the discovered set is a superset
+    of some E=1 prefix, and termination is unchanged."""
     b = q.shape[0]
+    e = max(1, min(int(expand_e), ef))
     if ring_size <= 0:
-        ring_size = max(2 * cap, 64)
+        ring_size = max(2 * cap, 64, e * cap)
     beam_d2, beam_ids, beam_exp = init_beam(entry_d2, entry_ids, ef)
     k0 = entry_ids.shape[1]
     if ring_size > k0:
@@ -136,15 +157,29 @@ def _beam_loop(fetch, n: int, cap: int, q: torch.Tensor,
         unexp = ~beam_exp
         if not bool(unexp.any()):
             break
-        active = unexp.any(dim=1)
-        # first unexpanded slot = best candidate (the beam is sorted)
-        pos = torch.where(unexp, slot_iota, ef).amin(dim=1)
-        pos = torch.where(active, pos, 0)
-        cand = beam_ids.gather(1, pos[:, None])[:, 0]
-        beam_exp = beam_exp | (active[:, None] & (slot_iota == pos[:, None]))
-
-        nbrs, pay = fetch(cand.clamp(0, n - 1))
-        valid = (nbrs >= 0) & active[:, None]
+        if e == 1:
+            active = unexp.any(dim=1)
+            # first unexpanded slot = best candidate (the beam is sorted)
+            pos = torch.where(unexp, slot_iota, ef).amin(dim=1)
+            pos = torch.where(active, pos, 0)
+            cand = beam_ids.gather(1, pos[:, None])[:, 0]
+            beam_exp = beam_exp | (active[:, None] & (slot_iota == pos[:, None]))
+            nbrs, pay = fetch(cand.clamp(0, n - 1))
+            valid = (nbrs >= 0) & active[:, None]
+        else:
+            # the E best unexpanded slots: sort the masked slot indices and
+            # take the first E (ef = "no such slot")
+            pos_e = torch.sort(torch.where(unexp, slot_iota, ef),
+                               dim=-1).values[:, :e]
+            act_e = pos_e < ef
+            cand = beam_ids.gather(1, torch.where(act_e, pos_e, 0))  # [B, E]
+            beam_exp = beam_exp | (
+                slot_iota[:, None, :] == pos_e[:, :, None]).any(dim=1)
+            nbrs, pay = fetch(cand.clamp(0, n - 1).reshape(-1))
+            nbrs = nbrs.reshape(b, e * cap)
+            pay = pay.reshape(b, e * cap) if scored else pay.reshape(b, e * cap, -1)
+            valid = (nbrs >= 0) & act_e[:, :, None].expand(b, e, cap).reshape(
+                b, e * cap)
         if forbid is not None:
             valid = valid & (nbrs != forbid[:, None])
         nbrs_safe = torch.where(valid, nbrs, 0)
@@ -152,10 +187,14 @@ def _beam_loop(fetch, n: int, cap: int, q: torch.Tensor,
             nbrs_safe[:, :, None] == ring[:, None, :]).any(dim=-1)
         new = valid & ~known
         ring = torch.cat(
-            [torch.where(new, nbrs, PAD_ID), ring[:, : ring_size - cap]], dim=1)
+            [torch.where(new, nbrs, PAD_ID), ring[:, : ring_size - e * cap]], dim=1)
 
-        nd2 = torch.where(new, l2sq(q[:, None, :], pay), INF)
+        nd2 = torch.where(new, pay if scored else l2sq(q[:, None, :], pay), INF)
         nids = torch.where(new, nbrs, PAD_ID)
+        if e > 1:
+            # the E expanded rows may share neighbors: dedup before the
+            # merge so the beam never holds one id twice
+            nd2, nids = dedup_ids(nd2, nids)
         # a new entry is unexpanded iff it is real, so its flag needs no
         # sort payload; the merge carries (d2, packed id) only
         nd2, nids = sort_dist_id(nd2, nids)
@@ -171,7 +210,8 @@ def _beam_loop(fetch, n: int, cap: int, q: torch.Tensor,
 def search_layer(adj: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
                  q: torch.Tensor, entry_d2: torch.Tensor,
                  entry_ids: torch.Tensor, ef: int, max_iters: int,
-                 forbid: torch.Tensor | None = None, ring_size: int = 0):
+                 forbid: torch.Tensor | None = None, ring_size: int = 0,
+                 expand_e: int = 1):
     """Batched beam search over one layer (HNSW Algorithm 2;
     ``searcher.rs:23-103``) with plain adjacency and vector gathers.
     Returns the sorted beam ``(d2 [B, ef], ids [B, ef])``."""
@@ -180,7 +220,7 @@ def search_layer(adj: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
         return nbrs, _gather_vecs(codes, scales, torch.where(nbrs >= 0, nbrs, 0))
 
     return _beam_loop(fetch, codes.shape[0], adj.shape[1], q, entry_d2,
-                      entry_ids, ef, max_iters, forbid, ring_size)
+                      entry_ids, ef, max_iters, forbid, ring_size, expand_e)
 
 
 def pack_layer(adj: torch.Tensor, codes: torch.Tensor,
@@ -240,9 +280,11 @@ def unpack_rows(row: torch.Tensor, cap: int, d: int):
 def search_layer_packed(packed: torch.Tensor, q: torch.Tensor,
                         entry_d2: torch.Tensor, entry_ids: torch.Tensor,
                         ef: int, max_iters: int, ring_size: int = 0,
+                        expand_e: int = 1,
                         forbid: torch.Tensor | None = None):
     """:func:`search_layer` over the packed-neighbor layout — the same
-    semantics and distances, one row gather per expansion."""
+    semantics and distances (at ``expand_e=1``), one row gather per
+    expansion; ``expand_e`` > 1 pops E entries per iteration."""
     n, w = packed.shape
     d = q.shape[1]
     cap = w // (d + 12)
@@ -251,7 +293,137 @@ def search_layer_packed(packed: torch.Tensor, q: torch.Tensor,
         return unpack_rows(packed[cand_safe.long()], cap, d)
 
     return _beam_loop(fetch, n, cap, q, entry_d2, entry_ids, ef, max_iters,
-                      forbid, ring_size)
+                      forbid, ring_size, expand_e)
+
+
+def pack_layer_pq(adj: torch.Tensor, pq_codes: torch.Tensor) -> torch.Tensor:
+    """PQ variant of :func:`pack_layer`: one u8 row per node holding its
+    neighbors' PQ codes and ids, ``cap*(m_pq+4)`` bytes per point instead
+    of ``cap*(d+12)``. Row layout ``pqcodes u8[cap*m_pq] | ids
+    i32-bytes[cap*4]``, the JAX package's bytes. Distances are ADC lookups
+    against the per-query table (``ops.pq.pq_lut``), so this layout
+    carries no scales."""
+    n, cap = adj.shape
+    m_pq = pq_codes.shape[1]
+    wrow = cap * (m_pq + 4)
+    out = torch.empty((n, wrow), dtype=torch.uint8, device=adj.device)
+    ch = max(1, min(n, (64 << 20) // max(wrow, 1)))
+    for lo in range(0, n, ch):
+        a = adj[lo:lo + ch].contiguous()
+        h = a.shape[0]
+        out[lo:lo + h, : cap * m_pq] = pq_codes[
+            torch.where(a >= 0, a, 0).long()].view(h, cap * m_pq)
+        out[lo:lo + h, cap * m_pq:] = a.view(torch.uint8).view(h, cap * 4)
+    return out
+
+
+def unpack_rows_pq(row: torch.Tensor, cap: int, m_pq: int):
+    """Decode :func:`pack_layer_pq` rows (any leading shape) into
+    (neighbor ids [..., cap], PQ codes u8[..., cap, m_pq])."""
+    lead = row.shape[:-1]
+    codes = row[..., : cap * m_pq].reshape(*lead, cap, m_pq)
+    nbrs = row[..., cap * m_pq:].contiguous().view(torch.int32).view(*lead, cap)
+    return nbrs, codes
+
+
+def search_layer_pq(packed: torch.Tensor, lut: torch.Tensor, m_pq: int,
+                    entry_d2: torch.Tensor, entry_ids: torch.Tensor, ef: int,
+                    max_iters: int, ring_size: int = 0, expand_e: int = 1):
+    """:func:`search_layer` over the PQ-packed layout: the traversal
+    order and termination are the exact beam's, but candidate distances
+    are ADC approximations read from ``lut`` (f32[B, m_sub, nv], one per
+    query); no candidate vector is fetched. ``m_pq`` is the bytes per
+    point in the rows. The caller rescores the final top-k exactly
+    (:func:`ann_search_pq`)."""
+    n, w = packed.shape
+    cap = w // (m_pq + 4)
+    b = lut.shape[0]
+    # 16-entry tables mean nibble-packed 4-bit codes
+    score = adc_score16 if lut.shape[2] == 16 else adc_score
+
+    def fetch(cand_safe):  # [R] with R = b * e
+        nbrs, codes = unpack_rows_pq(packed[cand_safe.long()], cap, m_pq)
+        d2 = score(lut, codes.reshape(b, -1, m_pq))  # [b, R / b * cap]
+        return nbrs, d2.reshape(nbrs.shape)
+
+    # a scored loop never computes l2sq: q only gives the batch size
+    return _beam_loop(fetch, n, cap, lut[:, :, 0], entry_d2, entry_ids, ef,
+                      max_iters, None, ring_size, expand_e, scored=True)
+
+
+def pq_beam(packed0: torch.Tensor, codebooks: torch.Tensor,
+            pq_codes: torch.Tensor, pivot_ids: torch.Tensor,
+            pivot_vecs: torch.Tensor, q: torch.Tensor, ef: int,
+            max_iters: int, expand_e: int = 1,
+            rot: torch.Tensor | None = None):
+    """Pivot-seeded ADC beam over a PQ-packed layer 0, the head of
+    :func:`ann_search_pq`. Returns the whole ADC-scored (beam_d2,
+    beam_ids); callers rerank."""
+    lut = pq_lut(q if rot is None else q @ rot, codebooks)  # [B, m_sub, nv]
+    # seed selection uses the exact pivot table (small, dense); the seed
+    # scores that enter the beam are ADC, so evictions compare like with
+    # like
+    _, e_ids = _pivot_seeds(pivot_ids, pivot_vecs, q, ef)
+    safe = torch.where(e_ids == PAD_ID, 0, e_ids).clamp(
+        0, pq_codes.shape[0] - 1).long()
+    score = adc_score16 if codebooks.shape[1] == 16 else adc_score
+    e_d2 = torch.where(e_ids == PAD_ID, INF, score(lut, pq_codes[safe]))
+    # bytes per point in the packed rows: nibble-packed for 4-bit
+    # codebooks, one byte per subspace for 8-bit
+    return search_layer_pq(packed0, lut, pq_codes.shape[1], e_d2, e_ids, ef,
+                           max_iters, expand_e=expand_e)
+
+
+def ann_search_pq(packed0: torch.Tensor, codebooks: torch.Tensor,
+                  pq_codes: torch.Tensor, pivot_ids: torch.Tensor,
+                  pivot_vecs: torch.Tensor, codes: torch.Tensor,
+                  scales: torch.Tensor, q: torch.Tensor, ef: int, k: int,
+                  max_iters: int, rerank: int, expand_e: int = 1,
+                  rot: torch.Tensor | None = None):
+    """Pivot-seeded serving over the PQ-packed layout: the packed exact
+    rows cost ``cap*(d+12)`` bytes per point, these ``cap*(m_pq+4)``,
+    plus ``m_pq`` for the seed-score table and the exact codes kept for
+    reranking.
+
+    ``rot`` (optional f32[d, d]): the OPQ rotation the codes were trained
+    under; the ADC table is then built from ``q @ rot`` while seed
+    selection and the exact rerank stay in the original space.
+
+    Pipeline: exact pivot seed selection, seeds re-scored with ADC, the
+    ADC beam over the PQ rows, then an exact re-score of the top
+    ``max(k, rerank)`` survivors against the u8 codes. Returns
+    (sqrt(d2) [B, k], ids [B, k])."""
+    _, beam_ids = pq_beam(packed0, codebooks, pq_codes, pivot_ids, pivot_vecs,
+                          q, ef, max_iters, expand_e, rot)
+    r = min(max(k, rerank), beam_ids.shape[1])
+    cand = beam_ids[:, :r]
+    csafe = torch.where(cand == PAD_ID, 0, cand).clamp(
+        0, codes.shape[0] - 1).long()
+    d2 = torch.empty(cand.shape, dtype=torch.float32, device=q.device)
+    step = _query_chunk(q.shape[0], r * q.shape[1] * 9, q.device)
+    for lo in range(0, q.shape[0], step):
+        c = csafe[lo:lo + step]
+        d2[lo:lo + step] = l2sq(q[lo:lo + step, None, :],
+                                dequantize(codes[c], scales[c]))
+    d2 = torch.where(cand == PAD_ID, INF, d2)
+    sd, si = sort_dist_id(d2, cand)
+    return torch.sqrt(sd[:, :k]), si[:, :k]
+
+
+def _query_chunk(b: int, bytes_per_query: int, device) -> int:
+    """How many queries a stage whose temporaries take ``bytes_per_query``
+    each may run at once: the stage's temps are kept under 2 GiB, and on
+    a CUDA device under a quarter of the free memory."""
+    budget = 2 << 30
+    if torch.device(device).type == "cuda":
+        budget = min(budget, torch.cuda.mem_get_info(device)[0] // 4)
+    return max(1, min(b, budget // max(bytes_per_query, 1)))
+
+
+def _pivot_seeds(pivot_ids, pivot_vecs, q, ef):
+    """Top-ef pivot seeds per query (see :func:`_pivot_seeds_pos`)."""
+    e_d2, e_ids, _ = _pivot_seeds_pos(pivot_ids, pivot_vecs, q, ef)
+    return e_d2, e_ids
 
 
 def _pivot_seeds_pos(pivot_ids: torch.Tensor, pivot_vecs: torch.Tensor,
@@ -273,7 +445,7 @@ def _pivot_seeds_pos(pivot_ids: torch.Tensor, pivot_vecs: torch.Tensor,
 
 def ann_search_seeded(packed0: torch.Tensor, pivot_ids: torch.Tensor,
                       pivot_vecs: torch.Tensor, q: torch.Tensor, ef: int,
-                      k: int, max_iters: int):
+                      k: int, max_iters: int, expand_e: int = 1):
     """Pivot-seeded serving: one product against the pivot table seeds the
     layer-0 beam over the packed rows, replacing the upper-layer descent.
     Seed distances use the expanded matmul form and the beam the
@@ -281,20 +453,154 @@ def ann_search_seeded(packed0: torch.Tensor, pivot_ids: torch.Tensor,
     path's in the last ulps. Returns (sqrt(d2) [B, k], ids [B, k])."""
     e_d2, e_ids, _ = _pivot_seeds_pos(pivot_ids, pivot_vecs, q, ef)
     beam_d2, beam_ids = search_layer_packed(packed0, q, e_d2, e_ids, ef,
-                                            max_iters)
+                                            max_iters, expand_e=expand_e)
+    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+
+
+def _top_ef_dedup_oversampled(md2: torch.Tensor, mids: torch.Tensor, ef: int):
+    """Deduplicated (d2, id)-sorted survivors of a wide candidate pool:
+    the 4*ef lowest entries first, then the dedup and the exact two-key
+    sort over those only, instead of both at full width
+    ([B, probes*T + ef]). Reducing before the dedup means duplicate ids
+    (overlapping probed shortlists) crowd the oversampled pool; 4x
+    oversampling hedges that. The JAX package reduces with the TPU's
+    ``approx_max_k``; here the reduction is the exact
+    ``ops.topk.topk_lowest``. Callers take the first ef columns."""
+    s = min(4 * ef, md2.shape[1])
+    if md2.shape[1] > s:
+        md2, idx = topk_lowest(md2, s)
+        mids = mids.gather(1, idx)
+    md2, mids = dedup_ids(md2, mids)
+    return sort_dist_id(md2, mids)
+
+
+def _probe_seeds(score_probe, pivot_ids, pivot_vecs, q, ef: int, probes: int,
+                 per_query_bytes: int):
+    """The seed stage of the probed routes, over chunks of queries: pivot
+    seeds, each of the ``probes`` nearest pivots' shortlist scored exactly
+    by ``score_probe(q_chunk, pivot_pos [b]) -> (d2 [b, T], ids [b, T])``,
+    the merged pool reduced to the ef best distinct candidates. Returns
+    (d2 [B, ef'], ids [B, ef']) with ef' = min(ef, pool width)."""
+    b = q.shape[0]
+    step = _query_chunk(b, per_query_bytes, q.device)
+    out_d2, out_ids = [], []
+    for lo in range(0, b, step):
+        qc = q[lo:lo + step]
+        e_d2, e_ids, pos = _pivot_seeds_pos(pivot_ids, pivot_vecs, qc, ef)
+        d2_parts, id_parts = [e_d2], [e_ids]
+        for i in range(min(probes, pos.shape[1])):
+            d2_i, ids_i = score_probe(qc, pos[:, i])
+            d2_parts.append(torch.where(ids_i >= 0, d2_i, INF))
+            id_parts.append(torch.where(ids_i >= 0, ids_i, PAD_ID))
+        md2, mids = _top_ef_dedup_oversampled(
+            torch.cat(d2_parts, dim=1), torch.cat(id_parts, dim=1), ef)
+        out_d2.append(md2[:, :ef])
+        out_ids.append(mids[:, :ef])
+    return torch.cat(out_d2), torch.cat(out_ids)
+
+
+_PROBE_CHUNK = 64  # shortlist members scored at once: a [b, 64, d] f32 temp
+
+
+def _score_probe_narrow(shortlist, codes, scales, qc, pos):
+    """One probe of the narrow route: the members of pivots ``pos`` [b]
+    scored exactly against ``qc`` [b, d], one narrow row gather each.
+    Returns (d2 [b, T], ids [b, T] with -1 pads)."""
+    cand = shortlist[pos]
+    safe = torch.where(cand >= 0, cand, 0).clamp(0, codes.shape[0] - 1).long()
+    parts = []
+    for c0 in range(0, cand.shape[1], _PROBE_CHUNK):
+        c = safe[:, c0:c0 + _PROBE_CHUNK]
+        parts.append(l2sq(qc[:, None, :], dequantize(codes[c], scales[c])))
+    return torch.cat(parts, dim=1), cand
+
+
+def _score_probe_packed(shortlist_pack, t: int, d: int, qc, pos):
+    """One probe of the packed route: one wide row per query
+    (``pack_layer`` layout over the shortlist), decoded and scored
+    ``_PROBE_CHUNK`` members at a time. Returns (d2 [b, T], ids [b, T])."""
+    rows = shortlist_pack[pos]  # [b, T*(d+12)] u8: the one gather
+    parts = []
+    for c0 in range(0, t, _PROBE_CHUNK):
+        c1 = min(c0 + _PROBE_CHUNK, t)
+        crow = rows[:, c0 * d:c1 * d].reshape(-1, c1 - c0, d)
+        srow = rows[:, t * d + c0 * 8:t * d + c1 * 8].contiguous().view(
+            torch.float32).view(-1, c1 - c0, 2)
+        parts.append(l2sq(qc[:, None, :], dequantize(crow, srow)))
+    nbrs = rows[:, t * (d + 8):].contiguous().view(torch.int32)
+    return torch.cat(parts, dim=1), nbrs
+
+
+def _probe_bytes_per_query(t: int, d: int, p: int, ef: int, probes: int,
+                           packed: bool) -> int:
+    """Temporaries of the probed seed stage per query: the gathered row
+    (packed route), the dequantized chunk and its difference, the [P]
+    seed distances, and the merged pool through its copies."""
+    return ((t * (d + 12) if packed else 0) + min(_PROBE_CHUNK, t) * d * 9
+            + p * 8 + (ef + probes * t) * 40)
+
+
+def ann_search_seeded_probe(packed0: torch.Tensor, pivot_ids: torch.Tensor,
+                            pivot_vecs: torch.Tensor, shortlist: torch.Tensor,
+                            codes: torch.Tensor, scales: torch.Tensor,
+                            q: torch.Tensor, ef: int, k: int, max_iters: int,
+                            probes: int, expand_e: int = 1):
+    """Pivot-seeded serving with shortlist probing, the seed stage for
+    regimes where beam walks cannot reach every true neighbor in bounded
+    iterations (heavy-tailed data: the misses are candidates the beam
+    never walked to).
+
+    ``shortlist`` i32[P, T]: each pivot's T nearest stored points (built
+    by ``finalize(pivot_shortlist=T)``). At query time the ``probes``
+    nearest pivots' shortlist members are scored exactly (one narrow row
+    gather each and the dequantize-l2sq, 64 members at a time) and
+    merged into the seed set: a true neighbor in any probed region's
+    shortlist is in the beam from iteration 0 with its exact distance.
+    The same exact (d2, id)-ordered beam follows."""
+    t = shortlist.shape[1]
+    md2, mids = _probe_seeds(
+        lambda qc, pos: _score_probe_narrow(shortlist, codes, scales, qc, pos),
+        pivot_ids, pivot_vecs, q, ef, probes,
+        _probe_bytes_per_query(t, q.shape[1], pivot_ids.shape[0], ef, probes,
+                               packed=False))
+    beam_d2, beam_ids = search_layer_packed(packed0, q, md2, mids, ef,
+                                            max_iters, expand_e=expand_e)
+    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+
+
+def ann_search_seeded_probe_packed(packed0: torch.Tensor,
+                                   pivot_ids: torch.Tensor,
+                                   pivot_vecs: torch.Tensor,
+                                   shortlist_pack: torch.Tensor, t: int, d: int,
+                                   q: torch.Tensor, ef: int, k: int,
+                                   max_iters: int, probes: int,
+                                   expand_e: int = 1):
+    """:func:`ann_search_seeded_probe` over a packed shortlist table
+    (``pack_layer(shortlist, codes, scales)``: the shortlist is
+    adjacency-shaped i32[P, T], so the packed layout reuses the beam's
+    row format). The same candidates and exact scores from ``probes``
+    wide-row gathers per query instead of ``probes * T`` narrow ones."""
+    md2, mids = _probe_seeds(
+        lambda qc, pos: _score_probe_packed(shortlist_pack, t, d, qc, pos),
+        pivot_ids, pivot_vecs, q, ef, probes,
+        _probe_bytes_per_query(t, d, pivot_ids.shape[0], ef, probes,
+                               packed=True))
+    beam_d2, beam_ids = search_layer_packed(packed0, q, md2, mids, ef,
+                                            max_iters, expand_e=expand_e)
     return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
 
 
 def ann_search_seeded_plain(adj0: torch.Tensor, codes: torch.Tensor,
                             scales: torch.Tensor, pivot_ids: torch.Tensor,
                             pivot_vecs: torch.Tensor, q: torch.Tensor,
-                            ef: int, k: int, max_iters: int):
+                            ef: int, k: int, max_iters: int,
+                            expand_e: int = 1):
     """Pivot-seeded serving without the packed rows (plain adjacency and
     vector gathers); same results as :func:`ann_search_seeded` given the
     same seeds."""
     e_d2, e_ids, _ = _pivot_seeds_pos(pivot_ids, pivot_vecs, q, ef)
     beam_d2, beam_ids = search_layer(adj0, codes, scales, q, e_d2, e_ids, ef,
-                                     max_iters)
+                                     max_iters, expand_e=expand_e)
     return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
 
 
@@ -334,11 +640,12 @@ def ann_search(adjs, codes: torch.Tensor, scales: torch.Tensor,
 
 def ann_search_packed(adjs_upper, packed0: torch.Tensor, codes: torch.Tensor,
                       scales: torch.Tensor, q: torch.Tensor, ep: int, ef: int,
-                      k: int, max_iters: int):
+                      k: int, max_iters: int, expand_e: int = 1):
     """:func:`ann_search` with the layer-0 beam over the packed rows
     (``adjs_upper`` = layers 1.. ordered bottom-up; the descent stays on
-    plain gathers). The same results as :func:`ann_search`."""
+    plain gathers). The same results as :func:`ann_search` at
+    ``expand_e=1``."""
     e_d2, e_ids = _descend(adjs_upper, codes, scales, q, ep)
     beam_d2, beam_ids = search_layer_packed(packed0, q, e_d2, e_ids, ef,
-                                            max_iters)
+                                            max_iters, expand_e=expand_e)
     return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]

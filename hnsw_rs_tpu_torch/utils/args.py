@@ -27,13 +27,26 @@ def eval_parser() -> argparse.ArgumentParser:
                    help="construction beam width (default 2*M)")
     p.add_argument("--ef", type=int, nargs="+", default=[100],
                    help="query beam width(s) to sweep")
+    p.add_argument("--build-expand", type=int, default=1,
+                   help="beam pops per construction-search iteration "
+                   "(E>1: fewer, wider lockstep iterations)")
+    p.add_argument("--build-seeded", action="store_true",
+                   help="seed layer-0 construction searches from the "
+                   "level>=1 pivot skeleton (one product) instead of "
+                   "greedy descent; pair with a tighter --build-mi")
     p.add_argument("--cluster-build", action="store_true",
                    help="cluster-bulk build instead of the wave builder")
     p.add_argument("--build-mi", type=int, default=None,
                    help="construction-search iteration cap (default "
                    "2*ef_cons+16)")
+    p.add_argument("--expand", type=int, default=1,
+                   help="beam pops per serving-search iteration (E>1 "
+                   "amortizes the per-iteration fixed costs)")
     p.add_argument("--pivots", type=int, default=0,
                    help="enable pivot-seeded serving with this many pivots")
+    p.add_argument("--pq-m", type=int, default=0,
+                   help="enable PQ-coded serving with this many bytes per "
+                   "point (requires --pivots; ADC beams and an exact rerank)")
     p.add_argument("--k", type=int, default=10, help="neighbors per query")
     p.add_argument("--batch", type=int, default=0,
                    help="query batch size for the QPS measurement "

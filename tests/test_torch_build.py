@@ -303,12 +303,14 @@ def test_repair_connectivity_matches():
 
 
 def test_wave_builder_is_not_ported():
-    """The wave builder's options that are not ported yet (E>1
-    expansion, wave_sort, build_seeded) raise, and its default E=1 path
-    builds. The name dates from when the whole wave builder raised."""
+    """The wave build's options that used to raise here (E>1 expansion,
+    wave_sort, build_seeded) build now, as its default E=1 path does; what
+    stays unported is the stop-layer insert of the sharded builds. The
+    name dates from when the whole wave build raised."""
     store = PointStore.from_vectors(np.zeros((4, 3), np.float32), 0.5, "cpu")
-    for kw in ({"build_expand": 2}, {"wave_sort": True}, {"build_seeded": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_index(store, Params(m=4, dim=3), **kw)
-    graph, ep, packed0, creps = build_index(store, Params(m=4, dim=3))
-    assert creps is None and packed0 is not None and len(graph) >= 1
+    for kw in ({}, {"build_expand": 2}, {"wave_sort": True},
+               {"build_seeded": True}):
+        graph, ep, packed0, creps = build_index(store, Params(m=4, dim=3), **kw)
+        assert creps is None and packed0 is not None and len(graph) >= 1, kw
+    with pytest.raises(TypeError, match="stop_layer"):
+        build_index(store, Params(m=4, dim=3), stop_layer=1)

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from hnsw_rs_tpu_torch import HNSW
-from hnsw_rs_tpu_torch.ops import groupmin, l2_kernel
+from hnsw_rs_tpu_torch.ops import groupmin, l2_kernel, limbs
 from hnsw_rs_tpu_torch.ops.distance import point_normsq
 from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
 from hnsw_rs_tpu_torch.utils.datasets import synthetic_clustered
@@ -204,3 +204,167 @@ def test_wave_build_on_card_matches_cpu(dev):
     assert card.serving_route() == "plain"
     _, ids = card.ann_batch(ds.test[:64], 10, 64)
     assert np.mean([20_000 + i in row for i, row in enumerate(ids)]) >= 0.95
+
+
+def _limb_rows(b, d, seed):
+    """Float32 queries [b, d] with the split's corner cases in the first
+    rows: all zero, a maximum that is an exact power of two, a row below
+    2^-96, and halves after scaling (ties of the rounding, both signs)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 3, (b, d)).astype(np.float32)
+    q[0] = 0.0
+    if b > 1:
+        q[1] = rng.uniform(-1, 1, d).astype(np.float32)
+        q[1, 0] = -4.0  # max |q| = 2^2: scale 2^-28
+    if b > 2:
+        q[2] = (rng.uniform(-1, 1, d) * 2.0 ** -100).astype(np.float32)
+    if b > 3:
+        # max 1.5 -> e = 1, scale 2^-29: (k + 0.5) * 2^-29 rounds at a tie
+        k = rng.integers(-1000, 1000, d).astype(np.float64)
+        q[3] = ((k + 0.5) * 2.0 ** -29).astype(np.float32)
+        q[3, -1] = 1.5
+    return q
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("b", [1, 33, 300, 4096])
+@pytest.mark.parametrize("d", [7, 96, 300, 768])
+def test_limb_split_kernel_matches_plain(dev, b, d, fast):
+    """The on-card limb split against ``query_limbs``: limbs and scale
+    bit for bit; |q|^2 and sum(q), summed in the kernel's own order,
+    within 1e-6 of sum(q^2) and of sum(|q|)."""
+    q = torch.from_numpy(_limb_rows(b, d, seed=b + d)).to(dev)
+    before = limbs.query_operands.launches
+    kl, ks, kq, ksum = limbs.query_operands(q, fast)
+    torch.cuda.synchronize()
+    assert limbs.query_operands.launches == before + 1
+    pl, ps, pq, psum = limbs.query_operands_plain(q, fast)
+    cl, cs, _, _ = limbs.query_operands_plain(q.cpu(), fast)
+    assert kl.shape == (limbs.N_LIMBS, b, limbs.padded_dim(d)) and kl.dtype == torch.int8
+    assert torch.equal(kl, pl) and torch.equal(ks, ps)
+    assert torch.equal(kl.cpu(), cl) and torch.equal(ks.cpu(), cs)
+    assert bool(((kq - pq).abs() <= 1e-6 * pq).all())
+    assert bool(((ksum - psum).abs() <= 1e-6 * q.abs().sum(dim=1)).all())
+
+
+def test_limb_split_counts_inside_the_distance_kernels(dev):
+    """K1 and K2 run the limb split inside their own C call: one count
+    each, and the same results as from limbs split beforehand (the
+    kernels are deterministic, so the outputs repeat bit for bit)."""
+    q, codes, scales, normsq = _collection(dev, 4096, 50, 33, seed=9)
+    before = limbs.query_operands.launches
+    a = l2_kernel.pairwise_l2sq_kernel(q, codes, scales, normsq)
+    kd, ki = groupmin.group_min_d2(q, codes, scales, normsq)
+    assert limbs.query_operands.launches == before + 2
+    assert torch.equal(a, l2_kernel.pairwise_l2sq_kernel(q, codes, scales, normsq))
+    assert torch.equal(a.view(33, 32, 128).amin(dim=2), kd) or bool(
+        ((a.view(33, 32, 128).amin(dim=2) - kd).abs()
+         <= 2e-6 * ((q * q).sum(1, keepdim=True) + normsq.max())).all())
+    with pytest.raises(ValueError, match="contiguous float32"):
+        limbs.query_operands(q.double())
+
+
+# -- the serving routes, refine and the build options on the card -----------------
+
+
+def _recall10(ids, truth):
+    return float(np.mean([len(set(a) & set(t)) / 10 for a, t in zip(ids, truth)]))
+
+
+def _cpu_index_20k():
+    ds = synthetic_clustered(20_000, 32, n_queries=256, seed=7)
+    cpu = HNSW(12, ef_cons=48, dim=32, device="cpu")
+    cpu.insert_bulk(ds.train, cluster_build=True,
+                    cluster_kwargs={"select_alg4": False})
+    truth = brute_force_nns(ds.test, cpu.points.codes, cpu.points.scales, 10)
+    return ds, cpu, truth
+
+
+def test_serving_routes_on_card_match_cpu(dev):
+    """Every new serving route on the card against the same route on the
+    CPU, on one CPU-built 20k index whose state is copied to the card
+    (the same pivots, shortlists, codebooks and PQ codes): ids equal on
+    >= 99% of the entries (the card's products may swap near-ties; the
+    share is printed), recall@10 within 0.01."""
+    ds, cpu, truth = _cpu_index_20k()
+    card = HNSW.from_numpy(*cpu.to_numpy(), dev)
+
+    def copy_state():
+        card.serve_expand, card.serve_probes = cpu.serve_expand, cpu.serve_probes
+        card.pq_rerank = cpu.pq_rerank
+        card._packed0 = None if cpu._packed0 is None else cpu._packed0.to(dev)
+        card._packed_n = cpu._packed_n
+        card._pivots = tuple(t.to(dev) for t in cpu._pivots)
+        card._pivots_n = cpu._pivots_n
+        card._pivot_shortlist, card._pivot_sl_pack = (
+            None if t is None else t.to(dev)
+            for t in (cpu._pivot_shortlist, cpu._pivot_sl_pack))
+        card._pq = None if cpu._pq is None else tuple(
+            None if t is None else t.to(dev) for t in cpu._pq)
+        card._pq_n = cpu._pq_n
+
+    modes = [({"pivots": 512, "expand": 4}, "seeded"),
+             ({"pivots": 512, "pivot_shortlist": 32}, "probe_packed"),
+             ({"pivots": 512, "pq_m": 8}, "pq"),
+             ({"pivots": 512, "pq_m": 8, "pq_bits": 4, "pq_opq": True}, "pq"),
+             ({"pivots": 512, "packed": False, "expand": 2}, "seeded_plain")]
+    for kw, route in modes:
+        cpu.finalize(**kw)
+        cpu.serve_probes = 6
+        copy_state()
+        assert card.serving_route() == cpu.serving_route() == route
+        _, ci = cpu.ann_batch(ds.test, 10, 48)
+        _, gi = card.ann_batch(ds.test, 10, 48)
+        print(f"{route} {kw}: ids equal on the card and the CPU: {np.mean(ci == gi):.4f}")
+        floor = 0.95 if route == "pq" else 0.99  # ADC sums tie more often
+        assert np.mean(ci == gi) >= floor, (kw, np.mean(ci == gi))
+        assert abs(_recall10(gi, truth) - _recall10(ci, truth)) <= 0.01
+    # the narrow probe route, which finalize never selects
+    cpu.finalize(pivots=512, pivot_shortlist=32)
+    copy_state()
+    card._pivot_sl_pack = cpu._pivot_sl_pack = None
+    assert card.serving_route() == "probe"
+    _, ci = cpu.ann_batch(ds.test, 10, 48)
+    _, gi = card.ann_batch(ds.test, 10, 48)
+    assert np.mean(ci == gi) >= 0.99
+    # and finalize itself on the card: its own pivots, shortlists and PQ
+    for kw in ({"pivots": 512, "pivot_shortlist": 32}, {"pivots": 512, "pq_m": 8}):
+        cpu.finalize(**kw)
+        card.finalize(**kw)
+        assert card.serving_route() == cpu.serving_route()
+        rc = _recall10(cpu.ann_batch(ds.test, 10, 48)[1], truth)
+        rg = _recall10(card.ann_batch(ds.test, 10, 48)[1], truth)
+        assert abs(rc - rg) <= 0.02, (kw, rc, rg)
+
+
+def test_refine_on_card_matches_cpu(dev):
+    ds, cpu, truth = _cpu_index_20k()
+    card = HNSW.from_numpy(*cpu.to_numpy(), dev)
+    cpu.refine(rounds=1, batch=4096)
+    card.refine(rounds=1, batch=4096)
+    same = (card.graph.get_layer(0).cpu() == cpu.graph.get_layer(0)).all(1)
+    print(f"refined rows equal on the card and the CPU: {float(same.float().mean()):.4f}")
+    assert float(same.float().mean()) >= 0.95
+    assert card.assert_param_compliance(verbose=False)
+    for idx in (cpu, card):
+        idx.finalize(pivots=512)
+    rc = _recall10(cpu.ann_batch(ds.test, 10, 32)[1], truth)
+    rg = _recall10(card.ann_batch(ds.test, 10, 32)[1], truth)
+    assert abs(rc - rg) <= 0.01, (rc, rg)
+
+
+@pytest.mark.parametrize("kw", [{"wave_sort": True}, {"build_seeded": True},
+                                {"build_expand": 2}], ids=str)
+def test_wave_build_options_on_card(dev, kw):
+    """The wave build's options on the card against the same build on
+    the CPU at N=5,000: recall@10 at ef=64 >= 0.95 and within 0.02."""
+    ds = synthetic_clustered(5_000, 32, n_queries=128, seed=9)
+    rec = {}
+    for where in ("cpu", dev):
+        idx = HNSW(12, ef_cons=48, dim=32, device=where)
+        idx.insert_bulk(ds.train, **kw)
+        assert idx.serving_route() == "packed"
+        assert idx.assert_param_compliance(verbose=False)
+        truth = brute_force_nns(ds.test, idx.points.codes, idx.points.scales, 10)
+        rec[str(where)] = _recall10(idx.ann_batch(ds.test, 10, 64)[1], truth)
+    assert min(rec.values()) >= 0.95 and abs(rec["cpu"] - rec[str(dev)]) <= 0.02, rec

@@ -124,24 +124,111 @@ def test_cross_load_both_directions(built, tmp_path):
 
 
 def test_unported_routes_raise(built):
-    """What the port does not carry yet raises: PQ serving, E>1
-    construction, wave_sort, build_seeded and the cosine metric. A
-    cluster-built index without pivots now serves through hierarchical
-    descent, and extending it wave-inserts."""
-    ds, _, tidx, _ = built
-    with pytest.raises(NotImplementedError):
-        tidx.finalize(pivots=256, pq_m=8)
-    for kw in ({"build_expand": 2}, {"wave_sort": True}, {"build_seeded": True}):
-        with pytest.raises(NotImplementedError):
-            HNSW(8, dim=D, device="cpu").insert_bulk(ds.train[:100], **kw)
+    """The cosine metric is what the port's HNSW still does not carry. The
+    four routes that used to raise here work now: PQ serving, E>1
+    construction, ``wave_sort`` and ``build_seeded``. A cluster-built
+    index without pivots serves through hierarchical descent, and
+    extending it wave-inserts."""
+    ds, _, tidx, truth = built
     with pytest.raises(NotImplementedError, match="metric"):
         HNSW(8, params=Params(m=8, dim=D, metric="cosine"), device="cpu")
+    pq = HNSW.from_numpy(*tidx.to_numpy(), "cpu")
+    pq.finalize(pivots=256, pq_m=8)
+    assert pq.serving_route() == "pq" and pq._packed0 is None
+    assert _recall(pq.ann_batch(ds.test, K, 96)[1], truth) >= 0.9
+    for kw in ({"build_expand": 2}, {"wave_sort": True}, {"build_seeded": True}):
+        small = HNSW(8, dim=D, device="cpu")
+        small.insert_bulk(ds.train[:300], **kw)
+        assert small.serving_route() == "packed"
+        assert small.assert_param_compliance(verbose=False)
+        _, ids = small.ann_batch(ds.train[:20], K, EF)
+        assert np.mean(ids[:, 0] == np.arange(20)) >= 0.95, kw
     plain = HNSW(8, dim=D, device="cpu")
     plain.insert_bulk(ds.train[:500], cluster_build=True)
     plain.finalize(pivots=0)
     assert plain.serving_route() == "packed"
     _, ids = plain.ann_batch(ds.train[:20], K, EF)
     assert np.mean(ids[:, 0] == np.arange(20)) >= 0.95
-    plain.insert_bulk(ds.train[500:600], cluster_build=True)
+    plain.insert_bulk(ds.train[500:600], cluster_build=True, wave_sort=True,
+                      build_seeded=True, build_pivot_cap=64)
     assert len(plain) == 600 and plain.serving_route() == "plain"
     assert plain.assert_param_compliance(verbose=False)
+
+
+def test_finalize_state_semantics(built):
+    """``finalize`` sets the serving mode from its arguments alone, as the
+    JAX package's tests hold it: ``pivots=0`` clears pivots and
+    shortlists, ``pq_m`` needs pivots and must divide dim, ``pq_m=0``
+    clears the PQ mode and brings the packed rows back."""
+    ds, jidx, tidx, _ = built
+    idx = HNSW.from_numpy(*tidx.to_numpy(), "cpu")
+    assert idx.serving_route() == "plain"
+    idx.finalize(expand=2, pivots=128, pivot_shortlist=8)
+    assert idx.serve_expand == 2 and idx.serving_route() == "probe_packed"
+    assert idx._pivot_shortlist.shape == (128, 8)
+    assert idx._pivot_sl_pack.shape == (128, 8 * (D + 12))
+    idx.finalize(pivots=128)  # without the flag the probed mode is gone
+    assert idx._pivot_shortlist is None and idx._pivot_sl_pack is None
+    assert idx.serve_expand == 1 and idx.serving_route() == "seeded"
+    idx.finalize(expand=4)  # pivots are absolute state, not a delta
+    assert idx._pivots is None and idx.serving_route() == "packed"
+    idx.finalize(pivots=128, pivot_shortlist=8, packed=False)
+    assert idx._pivot_sl_pack is None and idx._pivot_shortlist is not None
+    assert idx.serving_route() == "seeded_plain"  # no packed rows: no probe
+    with pytest.raises(ValueError, match="requires pivots"):
+        idx.finalize(pq_m=8)
+    with pytest.raises(ValueError, match="must divide"):
+        idx.finalize(pivots=64, pq_m=7)
+    with pytest.raises(ValueError, match="pq_bits"):
+        idx.finalize(pivots=64, pq_m=8, pq_bits=5)
+    with pytest.raises(ValueError, match="pivot_fill"):
+        idx.finalize(pivots=64, pivot_fill="nope")
+    idx.finalize(pivots=64, pq_m=8, pq_rerank=30)
+    assert idx._pq is not None and idx.pq_rerank == 30 and idx._packed0 is None
+    idx.finalize(pivots=64)  # pq_m=0 clears the PQ mode
+    assert idx._pq is None and idx._packed0 is not None
+    idx.finalize(pivots=64, pq_m=8, pq_bits=4, pq_opq=True, pq_iters=3)
+    cb, pq_codes, packed_pq, rot = idx._pq
+    assert cb.shape[:2] == (16, 16) and pq_codes.shape == (N, 8)  # pq_m bytes
+    assert packed_pq.shape == (N, 24 * (8 + 4)) and rot.shape == (D, D)
+    idx.insert_vec(ds.test[0])  # an insert makes every layout stale
+    assert idx.serving_route() == "plain"
+
+
+@pytest.mark.parametrize("mode", [
+    {"pivots": 256, "expand": 2}, {"pivots": 256, "pivot_shortlist": 16},
+    {"pivots": 256, "pq_m": 8, "pq_iters": 6},
+    {"pivots": 256, "pq_m": 8, "pq_bits": 4, "pq_iters": 6}, {"expand": 4}],
+    ids=["seeded_e2", "probe_packed", "pq8", "pq4", "packed_e4"])
+def test_serving_modes_match_jax_on_the_same_graph(built, mode):
+    """Each new ``ann_batch`` branch on the JAX package's graph: the same
+    pivots and shortlists, recall within 0.01 of the JAX package's in the
+    exact modes and 0.03 in the PQ modes (their codebooks are trained on
+    each side), ids equal on >= 99% of entries in the exact modes."""
+    ds, jidx, _, truth = built
+    j = jidx
+    j.finalize(**mode)
+    port = HNSW.from_numpy(
+        {"format": "hnsw_rs_tpu.v1", "params": j.params.to_dict(),
+         "n_layers": len(j.graph), "level_rng_calls": 1},
+        {"codes": np.asarray(j.points.codes), "scales": np.asarray(j.points.scales),
+         "levels": np.asarray(j.points.levels),
+         "cluster_pivots": np.asarray(j._cluster_pivots),
+         **{f"adj_{i}": np.asarray(a) for i, a in enumerate(j.graph.adjs)}}, "cpu")
+    port.finalize(**mode)
+    if "pivots" in mode:
+        np.testing.assert_array_equal(port._pivots[0].numpy(), np.asarray(j._pivots[0]))
+    jd, ji = j.ann_batch(ds.test, K, EF)
+    td, ti = port.ann_batch(ds.test, K, EF)
+    rj, rt = _recall(ji, truth), _recall(ti, truth)
+    print(f"{port.serving_route()}: recall port {rt:.4f}, JAX {rj:.4f}, "
+          f"ids equal {np.mean(ti == ji):.4f}")
+    if "pq_m" in mode:
+        assert port.serving_route() == "pq" and abs(rt - rj) <= 0.03, (rt, rj)
+    else:
+        assert abs(rt - rj) <= 0.01 and np.mean(ti == ji) >= 0.99
+        if "pivot_shortlist" in mode:
+            assert port.serving_route() == "probe_packed"
+            assert np.mean(port._pivot_shortlist.numpy()
+                           == np.asarray(j._pivot_shortlist)) >= 0.995
+    j.finalize(pivots=256)  # the module's fixture goes back as it was

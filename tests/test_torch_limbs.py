@@ -179,3 +179,43 @@ def test_library_key_covers_shared_headers(tmp_path, monkeypatch):
     # a new header joins the key too
     (tmp_path / "extra.cuh").write_text("#pragma once\n")
     assert all(cuda_build.library_path(n) != after[n] for n in before)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("b,d", [(1, 7), (33, 96), (5, 300)])
+def test_query_operands_on_the_cpu_are_the_plain_version(b, d, fast):
+    """On a CPU tensor ``query_operands`` is its plain version: the limbs
+    of q (of q rounded to bf16 with ``fast``), and |q|^2 and sum(q) of the
+    unrounded q. The scratch that the card's kernel fills has the same
+    shapes and starts both parts 16-byte aligned."""
+    from hnsw_rs_tpu_torch.ops import limbs
+
+    rng = np.random.default_rng(b + d)
+    q = torch.from_numpy(rng.normal(0, 2, (b, d)).astype(np.float32))
+    before = limbs.query_operands.launches
+    got = limbs.query_operands(q, fast)
+    assert limbs.query_operands.launches == before  # nothing launched here
+    qp = q.to(torch.bfloat16).to(torch.float32) if fast else q
+    want_l, want_s = limbs.query_limbs(qp)
+    assert torch.equal(got[0], want_l) and torch.equal(got[1], want_s)
+    assert torch.equal(got[2], (q * q).sum(-1)) and torch.equal(got[3], q.sum(-1))
+    ws_l, ws_f = limbs.query_workspace(b, d, "cpu")
+    assert ws_l.shape == want_l.shape and ws_l.dtype == torch.int8
+    assert ws_f.shape == (3, b) and ws_f.dtype == torch.float32
+    assert ws_l.data_ptr() % 16 == 0 and ws_f.data_ptr() % 4 == 0
+    assert ws_f.data_ptr() - ws_l.data_ptr() == ws_l.numel()
+    with pytest.raises(ValueError, match="contiguous float32"):
+        limbs.query_operands(q.T if d > 1 and b > 1 else q.double())
+
+
+def test_aligned_codes_pads_rows_to_16_bytes():
+    from hnsw_rs_tpu_torch.ops import limbs
+
+    codes = torch.arange(5 * 7, dtype=torch.uint8).view(5, 7)
+    scales, normsq = torch.ones(5, 2), torch.ones(5)
+    c, s, n, d_g = limbs.aligned_codes(codes, scales, normsq)
+    assert d_g == 16 and c.shape == (5, 16)
+    assert torch.equal(c[:, :7], codes) and int(c[:, 7:].sum()) == 0
+    assert s is scales and n is normsq
+    same = torch.zeros(4, 32, dtype=torch.uint8)
+    assert limbs.aligned_codes(same, scales[:4], normsq[:4])[0] is same

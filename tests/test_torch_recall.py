@@ -119,3 +119,21 @@ def test_eval_cli_needs_a_device_and_rejects_unported_models():
         main(["--device", "cpu", "--model", "flat"])
     with pytest.raises(NotImplementedError, match="import-reference"):
         main(["--device", "cpu", "--import-reference", "x"])
+
+
+@pytest.mark.parametrize("flags,route", [
+    (["--build-expand", "2", "--build-seeded", "--build-mi", "40"], "plain"),
+    (["--expand", "2", "--pivots", "64"], "seeded"),
+    (["--pivots", "64", "--pq-m", "10"], "pq"),
+    (["--expand", "2"], "packed")])
+def test_eval_cli_serving_and_build_flags(flags, route, capsys):
+    """The JAX CLI's build and serving flags reach ``insert_bulk`` and
+    ``finalize``: the route is the one the flags ask for, and the gate
+    holds on the bundled data (the PQ mode is held to 0.9)."""
+    rc = main(["--device", "cpu", "--store", STORE, "--queries", QUERIES,
+               "--lim", "300", "--m", "8", "--ef", "64", "--quiet", *flags])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert f"route={route}" in out
+    row = [ln.split() for ln in out.splitlines() if ln.split()[:1] == ["64"]][0]
+    assert float(row[1]) > (0.9 if route == "pq" else 0.99)

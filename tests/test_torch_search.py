@@ -130,3 +130,83 @@ def test_seeded_serving_matches_jax(ef):
         torch.from_numpy(adj), torch.from_numpy(codes), torch.from_numpy(scales),
         *targs, ef, 10, 2 * ef + 16)
     np.testing.assert_array_equal(pi.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("expand_e", [2, 4])
+@pytest.mark.parametrize("ef,max_iters,k0", [(24, 40, 5), (16, 3, 3), (48, 200, 64)])
+def test_expand_e_beams_match_jax(expand_e, ef, max_iters, k0):
+    """E > 1 pops: every id of the beam equals the JAX package's, over the
+    packed and the plain layout; E=1 stays what it was (the tests above)."""
+    codes, scales, adj, q = _graph(3)
+    e_d2, e_ids = _entries(q, codes, scales, k0, seed=ef + expand_e)
+    jp = jsearch.pack_layer(jnp.asarray(adj), jnp.asarray(codes), jnp.asarray(scales))
+    jd, ji = jsearch.search_layer_packed(
+        jp, jnp.asarray(q), jnp.asarray(e_d2), jnp.asarray(e_ids), ef, max_iters,
+        expand_e=expand_e)
+    tp = tsearch.pack_layer(torch.from_numpy(adj), torch.from_numpy(codes),
+                            torch.from_numpy(scales))
+    targs = [torch.from_numpy(a) for a in (q, e_d2, e_ids)]
+    td, ti = tsearch.search_layer_packed(tp, *targs, ef, max_iters,
+                                         expand_e=expand_e)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6)
+    jd2, ji2 = jsearch.search_layer(
+        jnp.asarray(adj), jnp.asarray(codes), jnp.asarray(scales), jnp.asarray(q),
+        jnp.asarray(e_d2), jnp.asarray(e_ids), ef, max_iters, expand_e=expand_e)
+    pd, pi = tsearch.search_layer(torch.from_numpy(adj), torch.from_numpy(codes),
+                                  torch.from_numpy(scales), *targs, ef, max_iters,
+                                  expand_e=expand_e)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji2))
+    # the E rows' shared neighbors are deduplicated: beyond the duplicate
+    # that _entries plants among the entry ids, no id appears twice
+    for row in ti.numpy():
+        real = row[row != PAD_ID]
+        assert real.size - len(set(real.tolist())) <= 1
+
+
+@pytest.mark.parametrize("expand_e", [1, 2, 4])
+def test_expand_e_with_forbid_and_ring_matches_jax(expand_e):
+    codes, scales, adj, q = _graph(4)
+    e_d2, e_ids = _entries(q, codes, scales, 4, seed=expand_e)
+    forbid = np.asarray(adj[:40, 0].clip(0), np.int32)
+    jp = jsearch.pack_layer(jnp.asarray(adj), jnp.asarray(codes), jnp.asarray(scales))
+    tp = torch.from_numpy(np.array(jp))
+    jd, ji = jsearch.search_layer_packed(
+        jp, jnp.asarray(q), jnp.asarray(e_d2), jnp.asarray(e_ids), 20, 30,
+        ring_size=100, expand_e=expand_e, forbid=jnp.asarray(forbid))
+    td, ti = tsearch.search_layer_packed(
+        tp, torch.from_numpy(q), torch.from_numpy(e_d2), torch.from_numpy(e_ids),
+        20, 30, ring_size=100, expand_e=expand_e, forbid=torch.from_numpy(forbid))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert not (ti.numpy() == forbid[:, None]).any()
+
+
+@pytest.mark.parametrize("expand_e", [2, 4])
+def test_seeded_and_hierarchical_serving_with_expand_match_jax(expand_e):
+    codes, scales, adj, q = _graph(5)
+    rng = np.random.default_rng(expand_e)
+    piv = rng.choice(codes.shape[0], 64, replace=False).astype(np.int32)
+    pv = (codes[piv].astype(np.float32) * scales[piv, 1:2] + scales[piv, 0:1])
+    jargs = [jnp.asarray(a) for a in (piv, pv, q)]
+    targs = [torch.from_numpy(a) for a in (piv, pv, q)]
+    jp = jsearch.pack_layer(jnp.asarray(adj), jnp.asarray(codes), jnp.asarray(scales))
+    tp = torch.from_numpy(np.array(jp))
+    ef = 16
+    _, ji = jsearch.ann_search_seeded(jp, *jargs, ef, 10, 48, expand_e)
+    _, ti = tsearch.ann_search_seeded(tp, *targs, ef, 10, 48, expand_e)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    _, ji = jsearch.ann_search_seeded_plain(
+        jnp.asarray(adj), jnp.asarray(codes), jnp.asarray(scales), *jargs, ef, 10,
+        48, expand_e)
+    _, pi = tsearch.ann_search_seeded_plain(
+        torch.from_numpy(adj), torch.from_numpy(codes), torch.from_numpy(scales),
+        *targs, ef, 10, 48, expand_e)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    upper = adj[:, :8].copy()  # a second layer over the same ids
+    _, ji = jsearch.ann_search_packed(
+        (jnp.asarray(upper),), jp, jnp.asarray(codes), jnp.asarray(scales),
+        jnp.asarray(q), jnp.int32(3), ef, 10, 48, expand_e)
+    _, hi = tsearch.ann_search_packed(
+        [torch.from_numpy(upper)], tp, torch.from_numpy(codes),
+        torch.from_numpy(scales), torch.from_numpy(q), 3, ef, 10, 48, expand_e)
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(ji))

@@ -21,9 +21,12 @@ their codes. For each batch size it prints one JSON line:
   summed (torch.profiler), ``kernel_device_ms`` the distance kernel's
   share of it and ``kernels_per_call`` how many kernels one call runs;
   "not measured" when the profiler sees no device activity.
-- where the checkout has ``ops/limbs.tensor_core_operands`` (the tensor-core
-  kernels): ``operands_ms``, that preparation alone, and ``launch_ms``,
-  the C launch alone with the operands made outside the timed window.
+- ``operands_ms``: the query's limb split alone. Where the checkout splits
+  the limbs on the card (``ops/limbs.query_operands``) that is one kernel
+  through its own entry point; where it has
+  ``ops/limbs.tensor_core_operands`` (plain PyTorch) that preparation,
+  and then also ``launch_ms``, the C launch alone with the operands made
+  outside the timed window.
 
 The first line printed is the card's name and power limit.
 """
@@ -106,9 +109,13 @@ def main():
         rng.random((args.n, args.d), np.float32)).to(dev))
     normsq = point_normsq(codes, scales)
     try:
-        from hnsw_rs_tpu_torch.ops.limbs import tensor_core_operands
-    except ImportError:
-        tensor_core_operands = None
+        from hnsw_rs_tpu_torch.ops import limbs as limbs_mod
+    except ImportError:  # a checkout from before the tensor-core kernels
+        limbs_mod = None
+    tensor_core_operands = getattr(limbs_mod, "tensor_core_operands", None)
+    query_operands = getattr(limbs_mod, "query_operands", None)
+    if query_operands is not None:
+        cuda_build.build("query_limbs")
     for b in (int(x) for x in args.batches.split(",")):
         q = dequantize(*quantize(torch.from_numpy(
             rng.random((b, args.d), np.float32)).to(dev)))
@@ -126,7 +133,9 @@ def main():
                "d": args.d, "reps": reps, "call_ms": call_ms, "host_ms": host_ms,
                "device_ms": dev_ms, "kernel_device_ms": kern_ms,
                "kernels_per_call": per_call}
-        if tensor_core_operands is not None:
+        if query_operands is not None:
+            row["operands_ms"] = events_ms(lambda: query_operands(q), reps)[0]
+        elif tensor_core_operands is not None:
             row["operands_ms"] = events_ms(lambda: tensor_core_operands(
                 q, codes, scales, normsq), reps)[0]
             ops = tensor_core_operands(q, codes, scales, normsq)
