@@ -55,7 +55,32 @@ Phases, one line each with its time:
    build and one each with ``wave_sort``, ``build_seeded`` and
    ``build_expand=2``: seconds and recall@10 at ef=128, each >= 0.95;
 10. ``python -m hnsw_rs_tpu_torch.eval_glove --device cuda`` on the
-   bundled ``test-data``: the GloVe gate on the card.
+   bundled ``test-data``: the GloVe gate on the card, then ``--model
+   ivf`` and ``--model pq`` on the same data;
+11. IVF-Flat at ``benchmarks/bench_families.py``'s configuration, not
+   cut: the cluster path's 1M points and K2 ground truth,
+   ``IVFFlatIndex(96, n_lists=8196, kmeans_iters=6)``, the probe ladder to
+   the first rung with recall@10 >= 0.99 (it must clear one), QPS over
+   32,768 queries through ``search``, bytes/point, build seconds by phase,
+   one batch by stage in CUDA events; then 2,048 points added in one
+   batch (ground truth over N + 2,048 through K2) and ``save`` -> ``load``
+   -> the same ids;
+12. IVF-PQ at the same source's: ``IVFPQIndex(96, n_lists=8196, m_pq=24,
+   kmeans_iters=6, rerank=40)``, the (probes, rerank) ladder (the run
+   fails only under 0.9; ``gate_met`` says whether 0.99 was reached), QPS,
+   bytes/point, build seconds by phase, one batch by stage;
+13. out-of-core serving at ``benchmarks/bench_paged_hybrid.py``'s 200k
+   contract, not cut: a wave build (M=16, ef_cons=96) of 200,000 x 96
+   points, ``finalize(pivots=4096)``, ``save_paged``; the in-memory
+   answers at ef=64; ``PagedHNSW``: QPS and parity; ``HybridPagedHNSW``
+   with half the packed rows hot at ``expand_e`` 1 and 4: parity 1.0 with
+   the in-memory seeded answers, hit rate, iterations; the PQ tier at
+   (24 B, ef 64) and (48 B, ef 128); ``BlockStore.search_streaming`` equal
+   to ``FlatIndex``;
+14. the cosine metric at N=131,072: a wave build with ``metric="cosine"``,
+   recall@10 >= 0.95 at ef=128 against ``FlatIndex(metric="cosine")``
+   through K2; and the raw-float ``FlatIndex(quantized=False)`` against
+   ``exact=True`` on 16,384 points.
 
 Before the paths, the query limb split (the pre-pass K1 and K2 launch
 ahead of their kernels) against ``ops/limbs.query_limbs``: limbs and
@@ -73,8 +98,10 @@ code is then not 0; without a CUDA device it exits non-zero at once.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -84,7 +111,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N, D, K, M, EF_CONS, NQ, NQ_RECALL, PIVOTS = (
     1_000_000, 96, 10, 24, 128, 32768, 4096, 16384)
 # the wave path: benchmarks/bench_wave_quality.py:40-68 (M=16, ef_cons=96)
-WAVE_N, WAVE_M, WAVE_EF_CONS, N_INSERT = N, 16, 96, 2048
+# cut to half the points: the four new phases share the command's time
+WAVE_N, WAVE_M, WAVE_EF_CONS, N_INSERT = 524_288, 16, 96, 2048
 WAVE_LADDER = [16, 24, 32, 48, 64, 96, 128, 192, 256]
 K1_B, K1_TOL = 1024, 2e-6  # K1 error bound, relative to |q|^2 + |x|^2
 # K2: d2 within K2_RTOL * d2 + K1_TOL * (|q|^2 + |x|^2); rows equal but for ties
@@ -108,6 +136,16 @@ PROBE_LADDER = [(40, 24), (40, 28), (48, 28), (48, 32), (64, 40), (64, 56),
 PQ_MODES = [(24, 4), (48, 8)]
 PQ_EFS = [64, 128, 256]
 OPT_N = 131072  # the wave build's options are driven at this depth
+# IVF-Flat and IVF-PQ: benchmarks/bench_families.py:45-52,119,135,218,253
+IVF_LISTS, IVF_ITERS = max(64, N // 122), 6
+IVF_PROBES = [8, 16, 32, 64, 128, 256]
+IVFPQ_M, IVFPQ_RERANK = 24, 40
+IVFPQ_LADDER = [(8, 40), (16, 40), (16, 100), (16, 200), (16, 400)]
+# out-of-core serving: benchmarks/bench_paged_hybrid.py:206-207,219,229,
+# 250-251,279-282 (the 200k contract)
+PAGED_N, PAGED_NQ, PAGED_EF, PAGED_PIVOTS, PAGED_CACHE = 200_000, 256, 64, 4096, 4096
+PAGED_PQ = [(24, 64), (48, 128)]  # (pq_m at 4 bits, ef)
+RAW_N = 16384  # the raw-float FlatIndex against its exact form
 LIMB_SRC = "hnsw_rs_tpu_torch/csrc/dist_core.cuh"
 KERNEL_SRC = "hnsw_rs_tpu_torch/csrc/group_min.cu"
 KERNEL_REPLACES = "hnsw_rs_tpu/ops/pallas/l2_groupmin.py:78"
@@ -200,15 +238,17 @@ def first_rung(fn, ladder, queries, truth, label):
 
 def event_ms(stages):
     """Run ``stages`` (name, fn) in order on the stream; returns
-    {name: ms} by CUDA events."""
+    {name: ms} by CUDA events, a repeated name's times summed."""
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
     marks[0].record()
     for i, (_, fn) in enumerate(stages):
         fn()
         marks[i + 1].record()
     torch.cuda.synchronize()
-    return {name: marks[i].elapsed_time(marks[i + 1])
-            for i, (name, _) in enumerate(stages)}
+    out = {}
+    for i, (name, _) in enumerate(stages):
+        out[name] = out.get(name, 0.0) + marks[i].elapsed_time(marks[i + 1])
+    return out
 
 
 def bound(ops, nbytes):
@@ -444,6 +484,415 @@ def probed_path(dev, t0):
           recall_before=json.dumps([round(r, 4) for r in before]).replace(" ", ""),
           recall_after=json.dumps([round(r, 4) for r in after]).replace(" ", ""))
     return launches
+
+
+def on_card(*tensors):
+    """Raises unless every tensor lies on a CUDA device."""
+    for t in tensors:
+        if not t.is_cuda:
+            raise AssertionError("a tensor of a device path lies on the CPU")
+
+
+def scratch_dir(prefix):
+    """A fresh directory under ``build/`` (listed in ``.gitignore``)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=os.path.join(ROOT, "build"))
+
+
+def ivf_flat_path(dev, ds, truth, t0):
+    """IVF-Flat at ``benchmarks/bench_families.py``'s configuration on the
+    cluster path's points and ground truth."""
+    from hnsw_rs_tpu_torch import FlatIndex, IVFFlatIndex
+    from hnsw_rs_tpu_torch.models import ivf as ivf_mod
+    from hnsw_rs_tpu_torch.ops.distance import l2sq
+    from hnsw_rs_tpu_torch.ops.quant import dequantize
+    from hnsw_rs_tpu_torch.ops.topk import INF, PAD_ID, topk_dist_id
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ivf = IVFFlatIndex(D, n_lists=IVF_LISTS, kmeans_iters=IVF_ITERS, device=dev)
+    ivf.train_add(ds.train)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    on_card(ivf.centroids, ivf.blocks, ivf.bscales, ivf.block_ids, ivf.codes)
+    lmax = int(ivf.blocks.shape[1])
+    if (len(ivf) != N or ivf.n_lists != IVF_LISTS
+            or int(ivf._counts.sum()) != N or int(ivf.block_ids.max()) != N - 1):
+        raise AssertionError("IVF-Flat build: wrong list count or missing points")
+    dev_bytes = (ivf.blocks.numel() + ivf.bscales.numel() * 4
+                 + ivf.block_ids.numel() * 4 + ivf.centroids.numel() * 4)
+    t0 = phase("ivf_flat_build", t0, vec_per_s=f"{N / build_s:.1f}",
+               lists=IVF_LISTS, lmax=lmax, largest_list=int(ivf._counts.max()),
+               **{f"{k}_s": f"{v:.3f}" for k, v in ivf.build_phase_s.items()},
+               bytes_per_point=f"{dev_bytes / N:.1f}")
+
+    chosen = None
+    for p in IVF_PROBES:
+        dist, ids = ivf.search(ds.test[:NQ_RECALL], K, n_probe=p)
+        rec = recall_at(ids, truth)
+        print(f"  ivf-flat probes={p} recall@10={rec:.4f}", flush=True)
+        if rec >= 0.99:
+            chosen = (p, rec)
+            break
+    if chosen is None:
+        raise AssertionError("IVF-Flat clears no rung of its probe ladder")
+    p, rec = chosen
+    if (ids.shape != (NQ_RECALL, K) or not np.all(np.isfinite(dist))
+            or ids.min() < 0 or ids.max() >= N):
+        raise AssertionError("IVF-Flat results have the wrong shape or values")
+    qps, reps = fn_qps(lambda: ivf.search(ds.test, K, n_probe=p), NQ)
+    t0 = phase("ivf_flat_serve", t0, n_probe=p, recall=f"{rec:.4f}",
+               qps=f"{qps:.1f}", batch=NQ, reps=reps,
+               bytes_per_point=f"{dev_bytes / N:.1f}",
+               peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+
+    # one batch of 4,096 by stage on the stream: the centroid top-p, then
+    # per probe the block gather, the dequantize + L2 in the search's own
+    # slices, and the running merge
+    q = ivf._prep_queries(ds.test[:NQ_RECALL])
+    b = q.shape[0]
+    ch = min(lmax, max(64, ivf_mod._SCAN_TEMP // (b * D * 4)))
+    st = {}
+
+    def top_p():
+        st["probe"] = ivf_mod._probe_lists(q, ivf.centroids, p)
+        st["bd"] = torch.full((b, K), INF, dtype=torch.float32, device=dev)
+        st["bi"] = torch.full((b, K), PAD_ID, dtype=torch.int32, device=dev)
+
+    def gather(pi):
+        li = st["probe"][:, pi]
+        st["cand"], st["sc"], st["ids"] = ivf.blocks[li], ivf.bscales[li], ivf.block_ids[li]
+
+    def score():
+        st["d2"] = torch.cat([
+            l2sq(q[:, None, :], dequantize(st["cand"][:, c0:c0 + ch],
+                                           st["sc"][:, c0:c0 + ch]))
+            for c0 in range(0, lmax, ch)], dim=1)
+
+    def merge():
+        ok = st["ids"] >= 0
+        st["bd"], st["bi"] = topk_dist_id(
+            torch.cat([st["bd"], torch.where(ok, st["d2"], INF)], dim=1),
+            torch.cat([st["bi"], torch.where(ok, st["ids"], PAD_ID)], dim=1), K)
+
+    stages = [("centroid_top_p_ms", top_p)]
+    for pi in range(p):
+        stages += [("block_gather_ms", lambda pi=pi: gather(pi)),
+                   ("dequantize_l2_ms", score), ("merge_ms", merge)]
+    event_ms(stages)  # warm
+    ms = event_ms(stages)
+    _, want = ivf_mod._ivf_search(q, ivf.centroids, ivf.blocks, ivf.bscales,
+                                  ivf.block_ids, p, K)
+    if not torch.equal(st["bi"], want):
+        raise AssertionError("the staged IVF-Flat batch differs from the search")
+    st.clear()
+    # what one batch must move: each probed block read once as stored
+    block_bytes = b * p * lmax * (D + 12)
+    t0 = phase("ivf_flat_breakdown", t0, batch=b, n_probe=p, slice=ch,
+               **{k: f"{v:.3f}" for k, v in ms.items()},
+               stages_ms=f"{sum(ms.values()):.3f}",
+               block_bytes_bound_ms=f"{block_bytes / MEM_BPS * 1e3:.3f}")
+
+    # 2,048 adds in one batch, then truth over N + 2,048 through K2
+    new = ds.test[NQ - N_INSERT:]
+    new_ids = ivf.add(new)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    if not np.array_equal(new_ids, np.arange(N, N + N_INSERT)) or len(ivf) != N + N_INSERT:
+        raise AssertionError("IVFFlatIndex.add returned unexpected ids")
+    _, self_ids = ivf.search(new, 1, n_probe=p)
+    self_rec = float(np.mean(self_ids[:, 0] == new_ids))
+    flat = FlatIndex(D, dev)
+    flat.add(np.concatenate([ds.train, new]))
+    if not torch.equal(flat.codes, ivf.codes[:N + N_INSERT]):
+        raise AssertionError("flat index codes differ from the IVF store")
+    _, truth2 = flat.search(ds.test[:NQ_RECALL], K, fused=True)
+    del flat
+    _, ids = ivf.search(ds.test[:NQ_RECALL], K, n_probe=p)
+    rec2 = recall_at(ids, truth2)
+    if self_rec < 0.99 or rec2 < 0.99:
+        raise AssertionError(f"after IVF adds: self recall {self_rec:.4f}, "
+                             f"recall@10 {rec2:.4f} at n_probe={p}")
+    t0 = phase("ivf_flat_add", t0, added=N_INSERT, add_s=f"{add_s:.3f}",
+               lmax=int(ivf.blocks.shape[1]), self_recall=f"{self_rec:.4f}",
+               recall=f"{rec2:.4f}")
+
+    path = scratch_dir("ivf_")
+    try:
+        ivf.save(path)
+        save_s = time.perf_counter() - t0
+        back = IVFFlatIndex.load(path, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0 - save_s
+        on_card(back.blocks, back.centroids)
+        _, ids_back = back.search(ds.test[:NQ_RECALL], K, n_probe=p)
+        if len(back) != len(ivf) or not np.array_equal(ids_back, ids):
+            raise AssertionError("a loaded IVF-Flat index answers differently")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return phase("ivf_flat_save_load", t0, save_s=f"{save_s:.3f}",
+                 load_s=f"{load_s:.3f}", ids_equal=True)
+
+
+def ivf_pq_path(dev, ds, truth, t0):
+    """IVF-PQ at ``benchmarks/bench_families.py``'s configuration on the
+    cluster path's points and ground truth."""
+    from hnsw_rs_tpu_torch.models import ivfpq as pq_mod
+    from hnsw_rs_tpu_torch.models.ivf import _probe_lists
+    from hnsw_rs_tpu_torch.models.ivfpq import IVFPQIndex
+    from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
+    from hnsw_rs_tpu_torch.ops.topk import INF, PAD_ID, topk_dist_id
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    pq = IVFPQIndex(D, n_lists=IVF_LISTS, m_pq=IVFPQ_M, kmeans_iters=IVF_ITERS,
+                    rerank=IVFPQ_RERANK, device=dev)
+    pq.train_add(ds.train)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    on_card(pq.centroids, pq.codebooks, pq.blocks, pq.block_ids, pq.rot, pq.codes)
+    lmax = int(pq.blocks.shape[1])
+    if len(pq) != N or tuple(pq.codebooks.shape) != (IVFPQ_M, 256, D // IVFPQ_M):
+        raise AssertionError("IVF-PQ build: wrong size or codebook shape")
+    # keep_codes (the rerank mode) holds the exact u8 codes on the card too
+    dev_bytes = (pq.blocks.numel() + pq.block_ids.numel() * 4
+                 + pq.centroids.numel() * 4 + pq.codebooks.numel() * 4
+                 + pq.rot.numel() * 4 + pq.codes.numel() + pq.scales.numel() * 4)
+    t0 = phase("ivf_pq_build", t0, vec_per_s=f"{N / build_s:.1f}", lmax=lmax,
+               **{f"{k}_s": f"{v:.3f}" for k, v in pq.build_phase_s.items()},
+               bytes_per_point=f"{dev_bytes / N:.1f}")
+
+    for p, rr in IVFPQ_LADDER:
+        dist, ids = pq.search(ds.test[:NQ_RECALL], K, n_probe=p, rerank=rr)
+        rec = recall_at(ids, truth)
+        print(f"  ivf-pq probes={p} rerank={rr} recall@10={rec:.4f}", flush=True)
+        if rec >= 0.99:
+            break
+    if (rec < 0.9 or ids.shape != (NQ_RECALL, K) or not np.all(np.isfinite(dist))
+            or ids.min() < 0 or ids.max() >= N):
+        raise AssertionError(f"IVF-PQ: recall@10 {rec:.4f} at its last rung, or "
+                             "results of the wrong shape or values")
+    qps, reps = fn_qps(lambda: pq.search(ds.test, K, n_probe=p, rerank=rr), NQ)
+    t0 = phase("ivf_pq_serve", t0, n_probe=p, rerank=rr, recall=f"{rec:.4f}",
+               gate_met=rec >= 0.99, qps=f"{qps:.1f}", batch=NQ, reps=reps,
+               bytes_per_point=f"{dev_bytes / N:.1f}",
+               peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+
+    # one batch of 4,096 by stage: per probe the table, the block gather,
+    # the table take and sum, the merge; the exact rerank at the end
+    q = dequantize(*quantize(torch.from_numpy(ds.test[:NQ_RECALL]).to(dev)))
+    b, kk = q.shape[0], max(K, rr)
+    m_pq, _, ds_sub = pq.codebooks.shape
+    cbn = (pq.codebooks * pq.codebooks).sum(-1)
+    centr = pq.centroids @ pq.rot
+    ch = min(lmax, max(64, pq_mod._TAKE_TEMP // (b * m_pq * 12)))
+    st = {}
+
+    def start():
+        st["probe"] = _probe_lists(q, pq.centroids, p)
+        st["qr"] = q @ pq.rot
+        st["bd"] = torch.full((b, kk), INF, dtype=torch.float32, device=dev)
+        st["bi"] = torch.full((b, kk), PAD_ID, dtype=torch.int32, device=dev)
+
+    def lut(pi):
+        rs = (st["qr"] - centr[st["probe"][:, pi]]).reshape(b, m_pq, ds_sub)
+        cross = torch.einsum("bms,mvs->bmv", rs, pq.codebooks)
+        st["lut"] = (rs * rs).sum(-1)[..., None] - 2.0 * cross + cbn[None]
+
+    def gather(pi):
+        pl = st["probe"][:, pi]
+        st["cand"], st["ids"] = pq.blocks[pl], pq.block_ids[pl]
+
+    def adc():
+        st["d2"] = torch.cat([
+            st["lut"].gather(2, st["cand"][:, c0:c0 + ch].long().transpose(1, 2))
+            .sum(dim=1).clamp_min(0.0) for c0 in range(0, lmax, ch)], dim=1)
+
+    def merge():
+        ok = st["ids"] >= 0
+        st["bd"], st["bi"] = topk_dist_id(
+            torch.cat([st["bd"], torch.where(ok, st["d2"], INF)], dim=1),
+            torch.cat([st["bi"], torch.where(ok, st["ids"], PAD_ID)], dim=1), kk)
+
+    def rerank():
+        st["out"] = pq_mod._rerank(q, pq.codes, pq.scales, torch.sqrt(st["bd"]),
+                                   st["bi"], K)
+
+    stages = [("centroid_top_p_ms", start)]
+    for pi in range(p):
+        stages += [("lut_ms", lambda pi=pi: lut(pi)),
+                   ("gather_ms", lambda pi=pi: gather(pi)),
+                   ("adc_sum_ms", adc), ("merge_ms", merge)]
+    stages.append(("rerank_ms", rerank))
+    event_ms(stages)  # warm
+    ms = event_ms(stages)
+    if not np.array_equal(st["out"][1].cpu().numpy(), ids):
+        raise AssertionError("the staged IVF-PQ batch differs from the search")
+    st.clear()
+    return phase("ivf_pq_breakdown", t0, batch=b, n_probe=p, rerank=rr, slice=ch,
+                 **{k: f"{v:.3f}" for k, v in ms.items()},
+                 stages_ms=f"{sum(ms.values()):.3f}")
+
+
+def paged_path(dev, t0):
+    """Out-of-core serving at ``benchmarks/bench_paged_hybrid.py``'s 200k
+    contract."""
+    from hnsw_rs_tpu_torch import HNSW
+    from hnsw_rs_tpu_torch.models.paged import save_paged
+    from hnsw_rs_tpu_torch.utils.datasets import synthetic_clustered
+
+    ds = synthetic_clustered(PAGED_N, D, n_queries=PAGED_NQ, seed=7)
+    index = HNSW(WAVE_M, ef_cons=WAVE_EF_CONS, dim=D, device=dev)
+    index.insert_bulk(ds.train)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index.finalize(pivots=PAGED_PIVOTS)
+    if index.serving_route() != "seeded":
+        raise AssertionError("the paged path's index does not serve seeded")
+    path = scratch_dir("paged_")
+    try:
+        save_paged(index, path)
+        disk = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = phase("paged_build", t0, n=PAGED_N, build_s=f"{build_s:.3f}",
+                   pivots=int(index._pivots[0].shape[0]),
+                   disk_bytes_per_point=f"{disk / PAGED_N:.1f}")
+        return _paged_serve(dev, ds, index, path, t0)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def _paged_serve(dev, ds, index, path, t0):
+    from hnsw_rs_tpu_torch import FlatIndex
+    from hnsw_rs_tpu_torch.models.paged import HybridPagedHNSW, PagedHNSW
+
+    def parity(ids, ref):
+        return float(np.mean([len(set(a) & set(b)) / K for a, b in zip(ids, ref)]))
+
+    mem = {}
+    for e in (1, 4):
+        index.serve_expand = e
+        mem[e] = index.ann_batch(ds.test, K, PAGED_EF)[1]
+    index.serve_expand = 1
+
+    host = PagedHNSW(path, cache_blocks=PAGED_CACHE)
+    ts = time.perf_counter()
+    _, ids_host = host.ann_batch(ds.test, K, PAGED_EF)
+    dt = time.perf_counter() - ts
+    par = parity(ids_host, mem[1])
+    if par < 0.95 or ids_host.min() < 0 or ids_host.max() >= PAGED_N:
+        raise AssertionError(f"PagedHNSW parity {par:.4f} with the in-memory answers")
+    t0 = phase("paged_host", t0, qps=f"{PAGED_NQ / dt:.1f}", parity=f"{par:.4f}",
+               ef=PAGED_EF, cache_blocks=PAGED_CACHE)
+
+    cap0 = index.graph.get_layer(0).shape[1]
+    wrow = cap0 * (D + 12)
+    hyb = HybridPagedHNSW(path, hot_bytes=(PAGED_N // 2) * wrow,
+                          pivots=PAGED_PIVOTS, cache_blocks=PAGED_CACHE, device=dev)
+    on_card(hyb._hot_packed, hyb._slot, hyb._pivot_ids, hyb._pivot_vecs)
+    if not torch.equal(hyb._pivot_ids, index._pivots[0]):
+        raise AssertionError("the hybrid tier seeds from other pivots")
+    hyb.ann_batch(ds.test[:32], K, PAGED_EF)  # warm
+    t0 = phase("paged_hybrid_open", t0, hot_rows=hyb.hot_rows,
+               device_bytes_per_point=f"{(hyb.device_bytes + hyb.pivot_bytes) / PAGED_N:.1f}")
+    for e in (1, 4):
+        hyb.hits = hyb.misses = 0
+        ts = time.perf_counter()
+        _, ids_hyb = hyb.ann_batch(ds.test, K, PAGED_EF, expand_e=e)
+        dt = time.perf_counter() - ts
+        par = parity(ids_hyb, mem[e])
+        exp = hyb.hits + hyb.misses
+        if par != 1.0:
+            raise AssertionError(f"hybrid tier at expand_e={e}: parity {par:.4f} "
+                                 "with the in-memory seeded answers, not 1.0")
+        t0 = phase(f"paged_hybrid_e{e}", t0, qps=f"{PAGED_NQ / dt:.1f}",
+                   parity=f"{par:.4f}", ids_equal=bool(np.array_equal(ids_hyb, mem[e])),
+                   hit_rate=f"{hyb.hits / max(exp, 1):.4f}", expansions=exp,
+                   dispatches=hyb.dispatches)
+    hyb.close()
+    del hyb
+
+    for pq_m, ef in PAGED_PQ:
+        pq = HybridPagedHNSW(path, pivots=PAGED_PIVOTS, pq_m=pq_m, pq_bits=4,
+                             cache_blocks=PAGED_CACHE, device=dev)
+        on_card(pq._pq_packed, pq._pq_codes, pq._pq_cb)
+        open_s = time.perf_counter() - t0
+        pq.ann_batch(ds.test[:32], K, ef)  # warm
+        ts = time.perf_counter()
+        dist, ids_pq = pq.ann_batch(ds.test, K, ef)
+        dt = time.perf_counter() - ts
+        par = parity(ids_pq, mem[1])
+        if par < 0.9 or not np.all(np.isfinite(dist)) or pq.hits or pq.misses:
+            raise AssertionError(f"PQ tier pq_m={pq_m} ef={ef}: parity {par:.4f}")
+        t0 = phase(f"paged_pq_tier_m{pq_m}_ef{ef}", t0, open_s=f"{open_s:.3f}",
+                   qps=f"{PAGED_NQ / dt:.1f}", parity=f"{par:.4f}",
+                   device_bytes_per_point=f"{pq.device_bytes / PAGED_N:.1f}",
+                   exact_packed_bytes_per_point=wrow)
+        pq.close()
+        del pq
+
+    flat = FlatIndex(D, dev)
+    flat.add(ds.train)
+    _, fused_ids = flat.search(ds.test, K, fused=True)
+    _, exact_ids = flat.search(ds.test, K, exact=True)
+    ts = time.perf_counter()
+    sd, si = host.store.search_streaming(ds.test, K, device=dev)
+    dt = time.perf_counter() - ts
+    host.close()
+    if not np.array_equal(si, exact_ids) or parity(si, fused_ids) < 0.999:
+        raise AssertionError("search_streaming differs from FlatIndex")
+    return phase("paged_streaming", t0, qps=f"{PAGED_NQ / dt:.1f}",
+                 ids_equal_flat_exact=True,
+                 fused_id_match=f"{parity(si, fused_ids):.4f}")
+
+
+def cosine_path(dev, ds, t0):
+    """The cosine metric through a wave build at N=131,072, and the
+    raw-float ``FlatIndex`` against its exact form."""
+    from hnsw_rs_tpu_torch import FlatIndex, HNSW
+
+    train, test = ds.train[:OPT_N] - 0.5, ds.test[:NQ_RECALL] - 0.5
+    flat = FlatIndex(D, dev, metric="cosine")
+    flat.add(train)
+    gt_d, truth = flat.search(test, K, fused=True)
+    norms = torch.sqrt(flat._normsq)
+    if float((norms - 1.0).abs().max()) > 0.02 or not np.all(np.isfinite(gt_d)):
+        raise AssertionError("cosine FlatIndex: stored rows are not unit vectors")
+    index = HNSW(WAVE_M, ef_cons=WAVE_EF_CONS, dim=D, metric="cosine", device=dev)
+    index.insert_bulk(train)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    on_card(index.points.codes, index._packed0)
+    if not torch.equal(flat.codes, index.points.codes[:OPT_N]):
+        raise AssertionError("cosine: flat index codes differ from the HNSW store")
+    _, ids = index.ann_batch(test, K, 128)
+    rec = recall_at(ids, truth)
+    _, scaled = index.ann_batch(test[:256] * 7.0, K, 128)
+    if rec < 0.95 or not np.array_equal(scaled, ids[:256]):
+        raise AssertionError(f"cosine wave build: recall@10 {rec:.4f} at ef=128, "
+                             "or scaled queries answer differently")
+    t0 = phase("cosine_hnsw", t0, n=OPT_N, build_s=f"{build_s:.3f}",
+               recall_ef128=f"{rec:.4f}", scale_invariant=True)
+    del index, flat
+
+    raw = FlatIndex(D, dev, quantized=False)
+    raw.add(ds.train[:RAW_N])
+    on_card(raw.codes)
+    if raw.codes.dtype != torch.float32:
+        raise AssertionError("the raw-float FlatIndex does not hold float32 rows")
+    q = ds.test[:256]
+    fd, fi = raw.search(q, K)
+    ed, ei = raw.search(q, K, exact=True)
+    match = recall_at(fi, ei)
+    d2_err = float(np.abs(fd ** 2 - ed ** 2).max())
+    if match < 0.999 or d2_err > 1e-4:
+        raise AssertionError(f"raw-float FlatIndex: id match {match:.4f}, d2 err "
+                             f"{d2_err} against exact=True")
+    try:
+        raw.search(q, K, fused=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("fused=True accepted a raw-float collection")
+    return phase("flat_raw_float", t0, n=RAW_N, id_match=f"{match:.4f}",
+                 d2_err=d2_err, fused_refused=True)
 
 
 def main():
@@ -760,6 +1209,14 @@ def main():
     del index, flat, cb, pq_codes, packed_pq, piv_ids, piv_vecs
     torch.cuda.empty_cache()
 
+    # -- IVF-Flat and IVF-PQ on the cluster path's points and ground truth ---------
+    groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    t0 = ivf_flat_path(dev, ds, truth, time.perf_counter())
+    t0 = ivf_pq_path(dev, ds, truth, t0)
+    ivf_launches = groupmin.group_min_d2.launches
+    limb_launches["ivf"] = limbs.query_operands.launches
+    torch.cuda.empty_cache()
+
     # -- the probed path: heavy-tailed 1M, shortlist probes, refine ---------------
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
     probe_launches = probed_path(dev, t0)
@@ -923,28 +1380,59 @@ def main():
                    stages=json.dumps(stages).replace(" ", ""))
     torch.cuda.empty_cache()
 
+    # -- out-of-core serving, then the cosine metric and raw-float rows -----------
+    groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    t0 = paged_path(dev, time.perf_counter())
+    paged_launches = groupmin.group_min_d2.launches
+    limb_launches["paged"] = limbs.query_operands.launches
+    torch.cuda.empty_cache()
+    groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    t0 = cosine_path(dev, ds, t0)
+    cosine_launches = groupmin.group_min_d2.launches
+    limb_launches["cosine"] = limbs.query_operands.launches
+    torch.cuda.empty_cache()
+    if min(ivf_launches, paged_launches, cosine_launches) < 1:
+        raise AssertionError("a new path's ground truth never launched group_min_d2")
+
     # -- the GloVe gate through the port's CLI, on the card ----------------------
-    res = subprocess.run(
-        [sys.executable, "-m", "hnsw_rs_tpu_torch.eval_glove", "--device", "cuda"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    rows = [ln.split() for ln in res.stdout.splitlines()
-            if len(ln.split()) == 3 and ln.split()[0].isdigit()]
-    if (res.returncode != 0 or not rows or float(rows[0][1]) <= 0.99
-            or "Index complies with params." not in res.stdout):
-        print(res.stdout[-2000:], res.stderr[-2000:], flush=True)
+    def glove(*flags):
+        res = subprocess.run(
+            [sys.executable, "-m", "hnsw_rs_tpu_torch.eval_glove", "--device",
+             "cuda", *flags], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        rows = [ln.split() for ln in res.stdout.splitlines() if len(ln.split()) == 3
+                and (ln.split()[0].isdigit() or ln.split()[0].startswith("probe="))]
+        if res.returncode != 0 or not rows:
+            print(res.stdout[-2000:], res.stderr[-2000:], flush=True)
+            raise AssertionError(f"eval_glove {' '.join(flags)} on the card failed")
+        return res.stdout, rows
+
+    out, rows = glove()
+    if float(rows[0][1]) <= 0.99 or "Index complies with params." not in out:
+        print(out[-2000:], flush=True)
         raise AssertionError("eval_glove on the card failed its gate")
     t0 = phase("eval_glove", t0, ef=rows[0][0], recall=rows[0][1], qps=rows[0][2])
+    # 31 lists for the 1,000 stored words: every list probed is the exact search
+    for model, floor in (("ivf", 1.0), ("pq", 0.9)):
+        _, rows = glove("--model", model, "--probe", "8", "31", "--quiet")
+        if float(rows[-1][1]) < floor:
+            raise AssertionError(f"eval_glove --model {model}: recall@10 "
+                                 f"{rows[-1][1]} at full probe")
+        t0 = phase(f"eval_glove_{model}", t0, **{
+            r[0].replace("=", ""): f"{r[1]}@{r[2]}qps" for r in rows})
 
     print(json.dumps({"kernels": [{
         "name": "group_min_d2", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES,
-        "launches": launches + probe_launches + wave_launches + opt_launches,
+        "launches": (launches + ivf_launches + probe_launches + wave_launches
+                     + opt_launches + paged_launches + cosine_launches),
         "max_abs_err": max(max_err, err_main), "ms": ms_main,
         "plain_ms": ms_main_plain, "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1], "library_ms": None,
-        "main_path_launches": {"cluster": launches, "probe": probe_launches,
-                               "wave": wave_launches,
-                               "wave_options": opt_launches},
+        "main_path_launches": {"cluster": launches, "ivf": ivf_launches,
+                               "probe": probe_launches, "wave": wave_launches,
+                               "wave_options": opt_launches,
+                               "paged": paged_launches,
+                               "cosine": cosine_launches},
     }, {
         "name": "pairwise_l2sq_kernel", "route": "cuda", "source": K1_SRC,
         "replaces": K1_REPLACES, "launches": k1_launches,

@@ -2,8 +2,9 @@
 
 The JAX package beside it is the reference; each module here has the
 same name as its counterpart there. This package imports ``torch`` and
-``numpy`` only. Devices are explicit: ``HNSW(..., device=...)`` and
-``FlatIndex(..., device=...)`` take one, and nothing picks CUDA or CPU by
+``numpy`` only. Devices are explicit: every class that holds device state
+(``HNSW``, ``FlatIndex``, ``IVFFlatIndex``, ``IVFPQIndex``,
+``HybridPagedHNSW``) takes one, and nothing picks CUDA or CPU by
 itself. The hand-written kernels (``csrc/*.cu``) are compiled with
 ``nvcc`` at first use into ``build/torch_kernels/`` (``ops.cuda_build``).
 
@@ -16,14 +17,19 @@ Layer map:
   pivot-seeded serving
 - ``build`` / ``heuristic`` / ``build_cluster`` — the wave builder and
   the cluster-bulk builder
-- ``models`` — ``HNSW`` and ``FlatIndex``
+- ``store_paged`` — the paged on-disk block store and its streaming
+  exact search
+- ``models`` — ``HNSW``, ``FlatIndex``, ``IVFFlatIndex``, ``IVFPQIndex``
+  and the out-of-core readers ``PagedHNSW`` / ``HybridPagedHNSW``
 - ``utils``  — seeded datasets, GloVe loading and exact brute force;
   ``eval_glove`` is the CLI
 """
 
 from .models.flat import FlatIndex
 from .models.hnsw import HNSW
+from .models.ivf import IVFFlatIndex
 from .params import Params, get_default_ml
 from .store import PointStore
 
-__all__ = ["FlatIndex", "HNSW", "Params", "PointStore", "get_default_ml"]
+__all__ = ["FlatIndex", "HNSW", "IVFFlatIndex", "Params", "PointStore",
+           "get_default_ml"]

@@ -2,8 +2,9 @@
 reference's ``eval_glove`` binary, ``eval_glove/src/main.rs:17-121``): a
 timed bulk build, one incremental insert, exact brute-force truth, a
 recall/QPS sweep over ef values, an optional save/reload round trip, the
-compliance check and the nearest-word REPL. Only ``--model hnsw`` is
-ported; the other families and ``--import-reference`` raise.
+compliance check and the nearest-word REPL; ``--model flat|ivf|pq``
+evaluates the other families on the same data. ``--import-reference`` is
+not ported and raises.
 
 Run: ``python -m hnsw_rs_tpu_torch.eval_glove --device cuda [--m 12] [--ef 50 100]``
 """
@@ -33,9 +34,6 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> int:
     args = eval_parser().parse_args(argv)
-    if args.model != "hnsw":
-        raise NotImplementedError(
-            f"--model {args.model} is not ported yet (ROADMAP.md queue A)")
     if args.import_reference:
         raise NotImplementedError("--import-reference is not ported yet "
                                   "(ROADMAP.md queue A)")
@@ -45,13 +43,15 @@ def main(argv=None) -> int:
     words, stored = load_glove_array(args.store, args.lim, verbose=verbose)
     _, queries = load_glove_array(args.queries or args.store, args.lim,
                                   verbose=verbose)
+    if args.model != "hnsw":
+        return eval_other_model(args, stored, queries, device)
     if args.load:
         t0 = time.time()
         index = HNSW.load(args.load, device)
         print(f"loaded index from {args.load} in {time.time() - t0:.2f}s")
     else:
         index = HNSW(args.m, ef_cons=args.ef_cons, dim=stored.shape[1],
-                     device=device)
+                     metric=args.metric, device=device)
         kw = {"build_expand": args.build_expand}
         if args.build_seeded:
             kw["build_seeded"] = True
@@ -100,6 +100,58 @@ def main(argv=None) -> int:
     index.assert_param_compliance(verbose=verbose)
     if args.words:
         show_nn_words(index, words, args.k)
+    return 0
+
+
+def eval_other_model(args, stored, queries, device: torch.device) -> int:
+    """Evaluate the Flat, IVF-Flat or IVF-PQ family on the same data."""
+    from .models.flat import FlatIndex
+    from .models.ivf import IVFFlatIndex
+    from .models.ivfpq import IVFPQIndex
+
+    k, d = args.k, stored.shape[1]
+    if args.metric == "cosine":
+        from .ops.distance import normalize
+
+        stored = normalize(torch.from_numpy(stored)).numpy()
+        queries = normalize(torch.from_numpy(queries)).numpy()
+    sweeps = [(f"probe={p}", {"n_probe": p}) for p in args.probe]
+    t0 = time.time()
+    if args.model == "flat":
+        index = FlatIndex(d, device, metric=args.metric)
+        index.add(stored)
+        sweeps = [("exact", {})]
+        what = "flat add"
+    elif args.model == "pq":
+        m_pq = next(m for m in (16, 10, 8, 5, 4, 2, 1) if d % m == 0)
+        index = IVFPQIndex(d, n_lists=args.n_lists, m_pq=m_pq,
+                           metric=args.metric, rerank=4 * k, device=device)
+        index.train_add(stored)
+        what = f"ivf-pq train+add ({index.n_lists} lists, m_pq={m_pq})"
+    else:
+        index = IVFFlatIndex(d, n_lists=args.n_lists, metric=args.metric,
+                             device=device)
+        index.train_add(stored)
+        what = f"ivf train+add ({index.n_lists} lists)"
+    _sync(device)
+    print(f"{what}: {len(index)} vectors in {time.time() - t0:.2f}s")
+
+    truth = brute_force_nns(queries, index.codes[:len(index)],
+                            index.scales[:len(index)], k)
+    batch = args.batch or len(queries)
+    big = np.tile(queries, (-(-batch // len(queries)), 1))[:batch]
+    print(f"\n setting    recall@{k}   QPS")
+    for label, kw in sweeps:
+        _, ann = index.search(queries, k, **kw)
+        rec = recall_at_k(ann, truth, k)
+        index.search(big, k, **kw)  # warm
+        t0 = time.time()
+        iters = 0
+        while time.time() - t0 < 1.0:
+            index.search(big, k, **kw)
+            iters += 1
+        qps = batch * iters / (time.time() - t0)
+        print(f"{label:>9s}   {rec:.4f}   {qps:10.0f}")
     return 0
 
 

@@ -5,9 +5,8 @@ hierarchical-descent serving over packed or plain layer-0 rows,
 ``finalize`` into pivot-seeded, shortlist-probed or PQ-coded serving
 (each with E>1 expansion), NN-descent ``refine``, and persistence in the
 JAX package's ``hnsw_rs_tpu.v1`` format, so either package loads an index
-the other saved.
-
-Not ported yet: the cosine metric.
+the other saved. ``metric="cosine"`` is L2 over unit vectors: inserts and
+queries are normalized on the way in.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import torch
 from ..build import build_index, insert_waves, repair_connectivity
 from ..errors import DimensionMismatch
 from ..graphs import LayeredGraph, degrees
+from ..ops.distance import normalize
 from ..ops.quant import dequantize, quantize
 from ..params import Params
 from ..search import (
@@ -74,16 +74,16 @@ class HNSW:
     """Hierarchical Navigable Small World index held on ``device``."""
 
     def __init__(self, m: int, ef_cons: int | None = None, dim: int = 0,
-                 params: Params | None = None, *,
+                 params: Params | None = None, metric: str = "l2", *,
                  device: torch.device | str):
         if params is None:
             if ef_cons is not None:
                 params = Params.from_m_efcons(m, ef_cons, dim)
             else:
                 params = Params.from_m(m, dim)
-        if params.metric != "l2":
-            raise NotImplementedError(
-                f"metric {params.metric!r} is not ported yet (l2 only)")
+            params.metric = metric
+        if params.metric not in ("l2", "cosine"):
+            raise ValueError(f"unknown metric {params.metric!r}")
         self.params = params
         self.device = torch.device(device)
         self.points = PointStore.empty(params.dim, self.device)
@@ -177,6 +177,7 @@ class HNSW:
             self.points = PointStore.empty(self.params.dim, self.device)
         fresh = len(self) == 0
         t0 = time.perf_counter()
+        x = self._maybe_normalize(x)
         new = PointStore.from_vectors(x, self.params.ml, self.device,
                                       seed=self._level_seed())
         del x
@@ -233,7 +234,8 @@ class HNSW:
         self._pending = []
         # one seeded level draw for the batch: the level stream advances
         # once per store call, as in a bulk insert
-        new = PointStore.from_vectors(vectors, self.params.ml, self.device,
+        x = self._maybe_normalize(torch.from_numpy(vectors).to(self.device))
+        new = PointStore.from_vectors(x, self.params.ml, self.device,
                                       seed=self._level_seed())
         new_ids = self.points.extend(new)
         if len(self.points) == vectors.shape[0]:  # was empty: fresh build
@@ -246,6 +248,9 @@ class HNSW:
         else:
             self._extend_built(new_ids, verbose=False)
         return self
+
+    def _maybe_normalize(self, x: torch.Tensor) -> torch.Tensor:
+        return normalize(x) if self.params.metric == "cosine" else x
 
     def _level_seed(self) -> int:
         # a distinct deterministic seed per store call (the reference
@@ -541,7 +546,7 @@ class HNSW:
         ef = max(ef, n)
         if max_iters is None:
             max_iters = 2 * ef + 16
-        q = dequantize(*quantize(x))
+        q = dequantize(*quantize(self._maybe_normalize(x)))
         e = self.serve_expand
         if route not in ("packed", "plain"):
             piv_ids, piv_vecs = self._pivots

@@ -56,3 +56,14 @@ def point_normsq(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """|x_j|^2 of each quantized point, float32[N]."""
     x = dequantize(codes, scales)
     return (x * x).sum(dim=-1)
+
+
+def normalize(x: torch.Tensor) -> torch.Tensor:
+    """Unit-normalize along the last axis (zero vectors pass through).
+
+    Cosine similarity reduces to L2 over unit vectors
+    (``|a - b|^2 = 2 - 2 cos(a, b)``), so every index takes
+    ``metric="cosine"`` by normalizing at insert and query time."""
+    x = x.to(torch.float32)
+    n = torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+    return x / torch.where(n > 0.0, n, 1.0)

@@ -119,6 +119,95 @@ def init_beam(entry_d2: torch.Tensor, entry_ids: torch.Tensor, ef: int):
     return d2, ids, ids == PAD_ID
 
 
+def _beam_pick(beam_ids: torch.Tensor, beam_exp: torch.Tensor, e: int,
+               look: int = 0):
+    """Pop the ``e`` best unexpanded entries of every sorted beam. Returns
+    (cand, active, beam_exp, spec): ``cand`` the popped ids ([B] at e=1,
+    else [B, E]; garbage where ``active`` is False), ``beam_exp`` with the
+    popped slots flagged, and ``spec`` i32[B, look], the ids of the next
+    ``look`` unexpanded entries after them (-1 where there is none): the
+    likely pops of the next iteration, for a caller that prefetches."""
+    b, ef = beam_ids.shape
+    slot_iota = torch.arange(ef, device=beam_ids.device)[None, :]
+    unexp = ~beam_exp
+    if e == 1 and look == 0:
+        active = unexp.any(dim=1)
+        # first unexpanded slot = best candidate (the beam is sorted)
+        pos = torch.where(unexp, slot_iota, ef).amin(dim=1)
+        pos = torch.where(active, pos, 0)
+        cand = beam_ids.gather(1, pos[:, None])[:, 0]
+        beam_exp = beam_exp | (active[:, None] & (slot_iota == pos[:, None]))
+        return cand, active, beam_exp, beam_ids.new_zeros((b, 0))
+    # the E best unexpanded slots: sort the masked slot indices and take
+    # the first E (ef = "no such slot"); the next ``look`` are speculative
+    t = min(e + look, ef)
+    pos_t = torch.sort(torch.where(unexp, slot_iota, ef), dim=-1).values[:, :t]
+    pos_e = pos_t[:, :e]
+    act_e = pos_e < ef
+    cand = beam_ids.gather(1, torch.where(act_e, pos_e, 0))  # [B, E]
+    beam_exp = beam_exp | (
+        slot_iota[:, None, :] == pos_e[:, :, None]).any(dim=1)
+    pos_s = pos_t[:, e:]
+    spec = torch.where(pos_s < ef,
+                       beam_ids.gather(1, torch.where(pos_s < ef, pos_s, 0)), -1)
+    if e == 1:
+        cand, act_e = cand[:, 0], act_e[:, 0]
+    return cand, act_e, beam_exp, spec
+
+
+def _beam_merge(beam_d2, beam_ids, beam_exp, ring, q, active, nbrs, pay,
+                e: int, cap: int, forbid: torch.Tensor | None = None,
+                scored: bool = False):
+    """Merge the popped entries' neighbor rows into the beams: ``nbrs``
+    [B*E, cap] (or [B, cap] at e=1) with their payload ``pay`` (vectors
+    f32[..., cap, d], or d2 f32[..., cap] when ``scored``), ``active`` as
+    :func:`_beam_pick` returned it. Known ids (in the beam or the ring)
+    and invalid lanes drop out; the rest enter by (d2, id) order. Returns
+    (beam_d2, beam_ids, beam_exp, ring)."""
+    b, ef = beam_ids.shape
+    ring_size = ring.shape[1]
+    if e == 1:
+        valid = (nbrs >= 0) & active[:, None]
+    else:
+        nbrs = nbrs.reshape(b, e * cap)
+        pay = pay.reshape(b, e * cap) if scored else pay.reshape(b, e * cap, -1)
+        valid = (nbrs >= 0) & active[:, :, None].expand(b, e, cap).reshape(
+            b, e * cap)
+    if forbid is not None:
+        valid = valid & (nbrs != forbid[:, None])
+    nbrs_safe = torch.where(valid, nbrs, 0)
+    known = (nbrs_safe[:, :, None] == beam_ids[:, None, :]).any(dim=-1) | (
+        nbrs_safe[:, :, None] == ring[:, None, :]).any(dim=-1)
+    new = valid & ~known
+    ring = torch.cat(
+        [torch.where(new, nbrs, PAD_ID), ring[:, : ring_size - e * cap]], dim=1)
+
+    nd2 = torch.where(new, pay if scored else l2sq(q[:, None, :], pay), INF)
+    nids = torch.where(new, nbrs, PAD_ID)
+    if e > 1:
+        # the E expanded rows may share neighbors: dedup before the
+        # merge so the beam never holds one id twice
+        nd2, nids = dedup_ids(nd2, nids)
+    # a new entry is unexpanded iff it is real, so its flag needs no
+    # sort payload; the merge carries (d2, packed id) only
+    nd2, nids = sort_dist_id(nd2, nids)
+    md2, mpk = merge_sorted_dist_id(
+        beam_d2, _pack_exp_id(beam_ids, beam_exp),
+        nd2, _pack_exp_id(nids, nids == PAD_ID),
+    )
+    beam_ids, beam_exp = _unpack_exp_id(mpk[:, :ef])
+    return md2[:, :ef], beam_ids, beam_exp, ring
+
+
+def _init_ring(entry_ids: torch.Tensor, ring_size: int) -> torch.Tensor:
+    """The ring of recently discovered ids, seeded with the entries."""
+    b, k0 = entry_ids.shape
+    if ring_size > k0:
+        return torch.cat(
+            [entry_ids, entry_ids.new_full((b, ring_size - k0), PAD_ID)], dim=1)
+    return entry_ids[:, :ring_size]
+
+
 def _beam_loop(fetch, n: int, cap: int, q: torch.Tensor,
                entry_d2: torch.Tensor, entry_ids: torch.Tensor, ef: int,
                max_iters: int, forbid: torch.Tensor | None = None,
@@ -141,69 +230,19 @@ def _beam_loop(fetch, n: int, cap: int, q: torch.Tensor,
     lockstep serving mode: the per-iteration fixed costs (sorts, launches,
     the host read) amortize over E pops, the discovered set is a superset
     of some E=1 prefix, and termination is unchanged."""
-    b = q.shape[0]
     e = max(1, min(int(expand_e), ef))
     if ring_size <= 0:
         ring_size = max(2 * cap, 64, e * cap)
     beam_d2, beam_ids, beam_exp = init_beam(entry_d2, entry_ids, ef)
-    k0 = entry_ids.shape[1]
-    if ring_size > k0:
-        ring = torch.cat(
-            [entry_ids, entry_ids.new_full((b, ring_size - k0), PAD_ID)], dim=1)
-    else:
-        ring = entry_ids[:, :ring_size]
-    slot_iota = torch.arange(ef, device=q.device)[None, :]
+    ring = _init_ring(entry_ids, ring_size)
     for _ in range(max_iters):
-        unexp = ~beam_exp
-        if not bool(unexp.any()):
+        if bool(beam_exp.all()):
             break
-        if e == 1:
-            active = unexp.any(dim=1)
-            # first unexpanded slot = best candidate (the beam is sorted)
-            pos = torch.where(unexp, slot_iota, ef).amin(dim=1)
-            pos = torch.where(active, pos, 0)
-            cand = beam_ids.gather(1, pos[:, None])[:, 0]
-            beam_exp = beam_exp | (active[:, None] & (slot_iota == pos[:, None]))
-            nbrs, pay = fetch(cand.clamp(0, n - 1))
-            valid = (nbrs >= 0) & active[:, None]
-        else:
-            # the E best unexpanded slots: sort the masked slot indices and
-            # take the first E (ef = "no such slot")
-            pos_e = torch.sort(torch.where(unexp, slot_iota, ef),
-                               dim=-1).values[:, :e]
-            act_e = pos_e < ef
-            cand = beam_ids.gather(1, torch.where(act_e, pos_e, 0))  # [B, E]
-            beam_exp = beam_exp | (
-                slot_iota[:, None, :] == pos_e[:, :, None]).any(dim=1)
-            nbrs, pay = fetch(cand.clamp(0, n - 1).reshape(-1))
-            nbrs = nbrs.reshape(b, e * cap)
-            pay = pay.reshape(b, e * cap) if scored else pay.reshape(b, e * cap, -1)
-            valid = (nbrs >= 0) & act_e[:, :, None].expand(b, e, cap).reshape(
-                b, e * cap)
-        if forbid is not None:
-            valid = valid & (nbrs != forbid[:, None])
-        nbrs_safe = torch.where(valid, nbrs, 0)
-        known = (nbrs_safe[:, :, None] == beam_ids[:, None, :]).any(dim=-1) | (
-            nbrs_safe[:, :, None] == ring[:, None, :]).any(dim=-1)
-        new = valid & ~known
-        ring = torch.cat(
-            [torch.where(new, nbrs, PAD_ID), ring[:, : ring_size - e * cap]], dim=1)
-
-        nd2 = torch.where(new, pay if scored else l2sq(q[:, None, :], pay), INF)
-        nids = torch.where(new, nbrs, PAD_ID)
-        if e > 1:
-            # the E expanded rows may share neighbors: dedup before the
-            # merge so the beam never holds one id twice
-            nd2, nids = dedup_ids(nd2, nids)
-        # a new entry is unexpanded iff it is real, so its flag needs no
-        # sort payload; the merge carries (d2, packed id) only
-        nd2, nids = sort_dist_id(nd2, nids)
-        md2, mpk = merge_sorted_dist_id(
-            beam_d2, _pack_exp_id(beam_ids, beam_exp),
-            nd2, _pack_exp_id(nids, nids == PAD_ID),
-        )
-        beam_ids, beam_exp = _unpack_exp_id(mpk[:, :ef])
-        beam_d2 = md2[:, :ef]
+        cand, active, beam_exp, _ = _beam_pick(beam_ids, beam_exp, e)
+        nbrs, pay = fetch(cand.clamp(0, n - 1).reshape(-1))
+        beam_d2, beam_ids, beam_exp, ring = _beam_merge(
+            beam_d2, beam_ids, beam_exp, ring, q, active, nbrs, pay, e, cap,
+            forbid, scored)
     return beam_d2, beam_ids
 
 

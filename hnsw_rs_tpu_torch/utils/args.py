@@ -15,7 +15,12 @@ def eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", required=True,
                    help="torch device to hold the index on (cpu, cuda, cuda:1)")
     p.add_argument("--model", choices=("hnsw", "flat", "ivf", "pq"), default="hnsw",
-                   help="index family to evaluate (hnsw only in this port)")
+                   help="index family to evaluate")
+    p.add_argument("--n-lists", type=int, default=0,
+                   help="IVF lists (0 = sqrt(N))")
+    p.add_argument("--probe", type=int, nargs="+", default=[8],
+                   help="IVF n_probe value(s) to sweep")
+    p.add_argument("--metric", choices=("l2", "cosine"), default="l2")
     p.add_argument("--store", default="test-data/store.txt",
                    help="GloVe text file with stored vectors")
     p.add_argument("--queries", default="test-data/queries.txt",

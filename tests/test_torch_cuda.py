@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the sm_90a group-min (K2)
 and all-pairs L2 (K1) kernels against their plain versions, and the
-port's device paths (cluster and wave builds, serving, inserts) against
-its own CPU paths. Every test is marked ``cuda`` and skips without a
+port's device paths (cluster and wave builds, serving, inserts, the IVF
+families, the flat forms and the paged tiers) against its own CPU paths. Every test is marked ``cuda`` and skips without a
 card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from hnsw_rs_tpu_torch import HNSW
+from hnsw_rs_tpu_torch import FlatIndex, HNSW, IVFFlatIndex
+from hnsw_rs_tpu_torch.models.ivfpq import IVFPQIndex
 from hnsw_rs_tpu_torch.ops import groupmin, l2_kernel, limbs
 from hnsw_rs_tpu_torch.ops.distance import point_normsq
 from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
@@ -368,3 +369,158 @@ def test_wave_build_options_on_card(dev, kw):
         truth = brute_force_nns(ds.test, idx.points.codes, idx.points.scales, 10)
         rec[str(where)] = _recall10(idx.ann_batch(ds.test, 10, 64)[1], truth)
     assert min(rec.values()) >= 0.95 and abs(rec["cpu"] - rec[str(dev)]) <= 0.02, rec
+
+
+# -- the other index families and out-of-core serving on the card -----------------
+
+
+def test_kmeans_on_card_repeats_bit_for_bit(dev):
+    """Lloyd's member sums are one-hot products in row chunks, not
+    ``index_add_`` (atomics, no fixed order): two runs on the card give
+    the same centroids and assignment bit for bit, and the same
+    assignment as the CPU on >= 99.5% of the points."""
+    from hnsw_rs_tpu_torch.models import ivf
+
+    ds = synthetic_clustered(20_000, 32, n_queries=8, seed=3)
+    x = dequantize(*quantize(torch.from_numpy(ds.train).to(dev)))
+    init = torch.from_numpy(
+        np.random.default_rng(0).choice(20_000, size=256, replace=False)).to(dev)
+    c1, a1 = ivf._kmeans(x, init, 256, 6)
+    c2, a2 = ivf._kmeans(x, init, 256, 6)
+    assert torch.equal(c1, c2) and torch.equal(a1, a2)
+    cc, ac = ivf._kmeans(x.cpu(), init.cpu(), 256, 6)
+    same = float((a1.cpu() == ac).float().mean())
+    print(f"k-means assignment on the card equals the CPU's on {same:.4f}")
+    assert same >= 0.995
+    # exact ties go to the lowest list on the card too
+    d2 = torch.tensor([[3.0, 1.0, 1.0, 2.0], [0.5, 0.5, 0.5, 0.5]], device=dev)
+    assert ivf._argmin_first(d2).tolist() == [1, 0]
+    assert ivf._argmin_first(d2.repeat(1, 600)).tolist() == [1, 0]
+
+
+def _families_data():
+    ds = synthetic_clustered(20_000, 32, n_queries=256, seed=7)
+    flat = FlatIndex(32, "cpu")
+    flat.add(ds.train)
+    return ds, flat.search(ds.test, 10)[1]
+
+
+@pytest.mark.parametrize("scanned", [False, True], ids=["one_shot", "scanned"])
+def test_ivf_flat_on_card_matches_cpu(dev, monkeypatch, scanned):
+    """IVF-Flat at N=20k built on the CPU, its state handed to the card:
+    both search branches return the CPU's ids on >= 99.9% of the entries;
+    built on the card itself, recall within 0.01; ``add`` scatters on the
+    card as on the CPU."""
+    from hnsw_rs_tpu_torch.models import ivf
+
+    if scanned:
+        monkeypatch.setattr(ivf, "DENSE_IVF_SEARCH_LIMIT", 0)
+    ds, truth = _families_data()
+    cpu = IVFFlatIndex(32, n_lists=128, kmeans_iters=6, device="cpu")
+    cpu.train_add(ds.train)
+    card = IVFFlatIndex.from_numpy(*cpu.to_numpy(), dev)
+    assert card.blocks.is_cuda and torch.equal(card.blocks.cpu(), cpu.blocks)
+    for p in (4, 16, 128):
+        _, ci = cpu.search(ds.test, 10, n_probe=p)
+        _, gi = card.search(ds.test, 10, n_probe=p)
+        assert np.mean(ci == gi) >= 0.999, (p, np.mean(ci == gi))
+    assert _recall10(gi, truth) >= 0.999  # full probe is the exact search
+    own = IVFFlatIndex(32, n_lists=128, kmeans_iters=6, device=dev)
+    own.train_add(ds.train)
+    rc = _recall10(cpu.search(ds.test, 10, n_probe=8)[1], truth)
+    rg = _recall10(own.search(ds.test, 10, n_probe=8)[1], truth)
+    assert abs(rc - rg) <= 0.01, (rc, rg)
+    extra = ds.test[:100] + 0.01
+    np.testing.assert_array_equal(cpu.add(extra), card.add(extra))
+    assert torch.equal(card.block_ids.cpu(), cpu.block_ids)
+    assert torch.equal(card.blocks.cpu(), cpu.blocks)
+
+
+def test_ivf_pq_on_card_matches_cpu(dev):
+    """IVF-PQ at N=20k: the CPU's trained state on the card returns its
+    reranked ids on >= 99% of the entries and its ADC ids on >= 95% (ADC
+    sums tie more often); trained on the card, recall within 0.02."""
+    ds, truth = _families_data()
+    cpu = IVFPQIndex(32, n_lists=128, m_pq=8, kmeans_iters=6, rerank=40,
+                     device="cpu")
+    cpu.train_add(ds.train)
+    meta, arrays = cpu.to_numpy()
+    pq_codes = np.zeros((len(cpu), 8), np.uint8)
+    bids = cpu.block_ids.numpy()
+    pq_codes[bids[bids >= 0]] = cpu.blocks.numpy()[bids >= 0]
+    card = IVFPQIndex.from_numpy(meta, dict(arrays, pq_codes=pq_codes), dev)
+    assert card.blocks.is_cuda and torch.equal(card.blocks.cpu(), cpu.blocks)
+    _, ci = cpu.search(ds.test, 10, n_probe=8)
+    _, gi = card.search(ds.test, 10, n_probe=8)
+    assert np.mean(ci == gi) >= 0.99
+    _, ca = cpu.search(ds.test, 10, n_probe=8, rerank=0)
+    _, ga = card.search(ds.test, 10, n_probe=8, rerank=0)
+    print(f"ADC ids equal on the card and the CPU: {np.mean(ca == ga):.4f}")
+    assert np.mean(ca == ga) >= 0.95
+    own = IVFPQIndex(32, n_lists=128, m_pq=8, kmeans_iters=6, rerank=40,
+                     device=dev)
+    own.train_add(ds.train)
+    rc, rg = _recall10(ci, truth), _recall10(own.search(ds.test, 10, n_probe=8)[1], truth)
+    assert rg >= 0.8 and abs(rc - rg) <= 0.02, (rc, rg)
+
+
+def test_flat_forms_and_cosine_on_card(dev):
+    """Raw-float rows, ``exact`` and the one-sort path on the card against
+    the CPU (ids equal on >= 99.9%), and the fused kernel under the cosine
+    metric against ``exact``."""
+    ds, _ = _families_data()
+    for kw in ({"quantized": False}, {"metric": "cosine"}, {}):
+        cpu, card = FlatIndex(32, "cpu", **kw), FlatIndex(32, dev, **kw)
+        cpu.add(ds.train)
+        card.add(ds.train)
+        for exact in (True, False):
+            _, ci = cpu.search(ds.test[:64], 10, exact=exact)
+            _, gi = card.search(ds.test[:64], 10, exact=exact)
+            assert np.mean(ci == gi) >= 0.999, (kw, exact)
+        if kw.get("quantized", True):
+            _, fi = card.search(ds.test[:64], 10, fused=True)
+            assert _recall10(fi, ci) >= 0.999
+
+
+def test_paged_tiers_on_card_match_in_memory(dev, tmp_path):
+    """The 20k wave build on the card, saved paged: the host reader, the
+    hybrid exact tier at E=1 and E=4 (with no cold lane at all, and with
+    every lane cold: one hot row of 20,000) return the in-memory index's
+    ids; the PQ tier keeps recall parity >= 0.9; the streaming exact
+    search equals ``FlatIndex``."""
+    from hnsw_rs_tpu_torch.models.paged import (
+        HybridPagedHNSW, PagedHNSW, save_paged)
+
+    ds = synthetic_clustered(20_000, 32, n_queries=64, seed=7)
+    idx = HNSW(12, ef_cons=48, dim=32, device=dev)
+    idx.insert_bulk(ds.train)
+    idx.finalize(pivots=1024)
+    path = str(tmp_path / "paged")
+    save_paged(idx, path)
+    plain = HNSW.from_numpy(*idx.to_numpy(), dev)
+    _, pi = plain.ann_batch(ds.test, 10, 48)
+    _, hi = PagedHNSW(path, cache_blocks=256).ann_batch(ds.test, 10, 48)
+    assert np.mean(hi == pi) >= 0.99  # numpy sums against the card's
+    wrow = idx.graph.get_layer(0).shape[1] * (32 + 12)
+    for e in (1, 4):
+        idx.serve_expand = e
+        _, mi = idx.ann_batch(ds.test, 10, 48)
+        for hot in (20_000 * wrow, wrow, 10_000 * wrow):
+            hy = HybridPagedHNSW(path, hot_bytes=hot, pivots=1024, device=dev)
+            assert hy._hot_packed.is_cuda and hy._pivot_vecs.is_cuda
+            _, yi = hy.ann_batch(ds.test, 10, 48, expand_e=e)
+            np.testing.assert_array_equal(yi, mi)
+            if hot == 20_000 * wrow:
+                assert hy.misses == 0 and hy.hits > 0
+            elif hot == wrow:
+                assert hy.hot_rows == 1 and hy.misses > 50 * hy.hits
+    idx.serve_expand = 1
+    pq = HybridPagedHNSW(path, pivots=1024, pq_m=8, pq_bits=4, device=dev)
+    assert pq._pq_packed.is_cuda
+    _, qi = pq.ann_batch(ds.test, 10, 96)
+    _, mi = idx.ann_batch(ds.test, 10, 96)
+    assert _recall10(qi, mi) >= 0.9
+    flat = FlatIndex(32, dev)
+    flat.add(ds.train)
+    _, si = PagedHNSW(path).store.search_streaming(ds.test, 10, device=dev)
+    np.testing.assert_array_equal(si, flat.search(ds.test, 10, exact=True)[1])

@@ -124,14 +124,19 @@ def test_cross_load_both_directions(built, tmp_path):
 
 
 def test_unported_routes_raise(built):
-    """The cosine metric is what the port's HNSW still does not carry. The
-    four routes that used to raise here work now: PQ serving, E>1
-    construction, ``wave_sort`` and ``build_seeded``. A cluster-built
-    index without pivots serves through hierarchical descent, and
-    extending it wave-inserts."""
+    """Nothing of ``HNSW`` raises as unported any more. The cosine metric,
+    the last route that did, builds and serves (a scaled query gets the
+    same answer; an unknown metric is a ``ValueError``), as do the four
+    before it: PQ serving, E>1 construction, ``wave_sort`` and
+    ``build_seeded``. A cluster-built index without pivots serves through
+    hierarchical descent, and extending it wave-inserts."""
     ds, _, tidx, truth = built
-    with pytest.raises(NotImplementedError, match="metric"):
-        HNSW(8, params=Params(m=8, dim=D, metric="cosine"), device="cpu")
+    cos = HNSW(8, params=Params(m=8, dim=D, metric="cosine"), device="cpu")
+    cos.insert_bulk(ds.train[:300])
+    _, ids = cos.ann_batch(ds.train[:20] * 3.0, K, EF)
+    assert np.mean(ids[:, 0] == np.arange(20)) >= 0.95
+    with pytest.raises(ValueError, match="metric"):
+        HNSW(8, params=Params(m=8, dim=D, metric="dot"), device="cpu")
     pq = HNSW.from_numpy(*tidx.to_numpy(), "cpu")
     pq.finalize(pivots=256, pq_m=8)
     assert pq.serving_route() == "pq" and pq._packed0 is None

@@ -112,13 +112,48 @@ def test_eval_cli_end_to_end(tmp_path, capsys):
     assert float(row[1]) > 0.99
 
 
-def test_eval_cli_needs_a_device_and_rejects_unported_models():
+def test_eval_cli_needs_a_device_and_rejects_unported_models(capsys):
+    """``--device`` is required and ``--import-reference`` is the one
+    route that still raises; ``--model flat``, which used to, runs and is
+    exact."""
     with pytest.raises(SystemExit):
         main(["--store", STORE])
-    with pytest.raises(NotImplementedError, match="flat"):
-        main(["--device", "cpu", "--model", "flat"])
     with pytest.raises(NotImplementedError, match="import-reference"):
         main(["--device", "cpu", "--import-reference", "x"])
+    rc = main(["--device", "cpu", "--store", STORE, "--queries", QUERIES,
+               "--lim", "300", "--model", "flat", "--quiet"])
+    assert rc == 0
+    row = [ln.split() for ln in capsys.readouterr().out.splitlines()
+           if ln.split()[:1] == ["exact"]][0]
+    assert float(row[1]) == 1.0
+
+
+@pytest.mark.parametrize("flags,label,floor", [
+    (["--model", "ivf", "--n-lists", "16", "--probe", "4", "16"], "probe=16", 1.0),
+    (["--model", "ivf", "--metric", "cosine", "--probe", "8"], "probe=8", 0.8),
+    (["--model", "pq", "--n-lists", "8", "--probe", "8"], "probe=8", 0.9),
+    (["--model", "flat", "--metric", "cosine"], "exact", 1.0)],
+    ids=["ivf", "ivf_cosine", "pq", "flat_cosine"])
+def test_eval_cli_other_families(flags, label, floor, capsys):
+    """``--model flat|ivf|pq`` with ``--n-lists``, ``--probe`` and
+    ``--metric``: each sweep row prints its recall against the exact truth
+    over the family's own stored codes; full probe is exact."""
+    rc = main(["--device", "cpu", "--store", STORE, "--queries", QUERIES,
+               "--lim", "400", "--quiet", *flags])
+    assert rc == 0
+    out = capsys.readouterr().out
+    row = [ln.split() for ln in out.splitlines() if ln.split()[:1] == [label]][0]
+    assert float(row[1]) >= floor, out
+
+
+def test_eval_cli_cosine_hnsw(capsys):
+    rc = main(["--device", "cpu", "--store", STORE, "--queries", QUERIES,
+               "--lim", "300", "--m", "8", "--ef", "64", "--metric", "cosine",
+               "--quiet"])
+    assert rc == 0
+    row = [ln.split() for ln in capsys.readouterr().out.splitlines()
+           if ln.split()[:1] == ["64"]][0]
+    assert float(row[1]) > 0.99
 
 
 @pytest.mark.parametrize("flags,route", [
