@@ -51,7 +51,7 @@ Phases, one line each with its time:
    same rung, and PQ serving at (24 bytes, 4 bits) and (48 bytes, 8
    bits): training and packing seconds, recall at ef 64, 128, 256 (the
    run fails under 0.5), QPS, bytes/point;
-9. the wave build's options at N=131,072 (M=16, ef_cons=96): a default
+9. the wave build's options at N=65,536 (M=16, ef_cons=96): a default
    build and one each with ``wave_sort``, ``build_seeded`` and
    ``build_expand=2``: seconds and recall@10 at ef=128, each >= 0.95;
 10. ``python -m hnsw_rs_tpu_torch.eval_glove --device cuda`` on the
@@ -80,7 +80,19 @@ Phases, one line each with its time:
 14. the cosine metric at N=131,072: a wave build with ``metric="cosine"``,
    recall@10 >= 0.95 at ef=128 against ``FlatIndex(metric="cosine")``
    through K2; and the raw-float ``FlatIndex(quantized=False)`` against
-   ``exact=True`` on 16,384 points.
+   ``exact=True`` on 16,384 points;
+15. on the cluster path's index, ``ReplicatedHNSW`` over ``[cuda:0]``:
+   ids equal to the index's packed hierarchical route;
+16. the scale-out layer (``parallel``): the cluster path's 1M points over
+   8 shards on ``cuda:0`` (``ShardedHNSW(24, 96, 8, ef_cons=128)``, the
+   concurrent cluster build), 65,536 pivots a shard, the (ef, max_iters)
+   ladder to recall@10 >= 0.99 on the cluster path's truth, QPS, build
+   seconds and QPS beside the single index's, device bytes/point; 2,048 ``add``s served on the plain route (truth over
+   N + 2,048 through K2), ``save`` -> ``load`` -> the same ids, then
+   seeded again; at N=65,536 over 4 shards on skewed bounds the
+   concurrent wave build against the sequential one, ``rebalance`` and
+   its recall; the rank form's ``all_gather`` merge on NCCL at world
+   size 1 equal to the in-process ids.
 
 Before the paths, the query limb split (the pre-pass K1 and K2 launch
 ahead of their kernels) against ``ops/limbs.query_limbs``: limbs and
@@ -135,7 +147,10 @@ PROBE_LADDER = [(40, 24), (40, 28), (48, 28), (48, 32), (64, 40), (64, 56),
 # PQ serving on the cluster index: benchmarks/bench_serving_memory.py:246-247
 PQ_MODES = [(24, 4), (48, 8)]
 PQ_EFS = [64, 128, 256]
-OPT_N = 131072  # the wave build's options are driven at this depth
+OPT_N = 131072  # the cosine metric's wave build is driven at this depth
+# the wave build's options and the sharded wave builds and rebalance: cut
+# from OPT_N when the sharded phases joined, to keep the command in time
+CUT_N = 65536
 # IVF-Flat and IVF-PQ: benchmarks/bench_families.py:45-52,119,135,218,253
 IVF_LISTS, IVF_ITERS = max(64, N // 122), 6
 IVF_PROBES = [8, 16, 32, 64, 128, 256]
@@ -146,6 +161,19 @@ IVFPQ_LADDER = [(8, 40), (16, 40), (16, 100), (16, 200), (16, 400)]
 PAGED_N, PAGED_NQ, PAGED_EF, PAGED_PIVOTS, PAGED_CACHE = 200_000, 256, 64, 4096, 4096
 PAGED_PQ = [(24, 64), (48, 128)]  # (pq_m at 4 bits, ef)
 RAW_N = 16384  # the raw-float FlatIndex against its exact form
+# the sharded path: bench.py's configuration over 8 shards on one card
+# (benchmarks/SHARDED_SCALING.json's widest row, dryrun_multichip(8)); the
+# pivot budget a shard, over the cluster path's (ef, max_iters) ladder.
+# The single index's 16,384 split eight ways (2,048 a shard) is not
+# driven: a shard holds ~12 points of each of the data's 10,000 clusters,
+# its layer 0 is not one component, and a cluster without a pivot is
+# seldom reached. On an H100 (PERF.md), 2,048 a shard reached recall@10
+# 0.9293 at (512, 700); 32,768 cleared only at (256, 280), 0.9908, 1,629
+# QPS; 65,536 clears at (96, 80), 0.9906, then 0.9924 and 0.9952 at the
+# next two rungs, at 5,868 QPS
+SHARDS, OPT_SHARDS, PLAIN_EF = 8, 4, 128
+SHARD_PIVOTS = 65536
+OPT_SPLIT = [0.0, 0.3, 0.55, 0.8, 1.0]
 LIMB_SRC = "hnsw_rs_tpu_torch/csrc/dist_core.cuh"
 KERNEL_SRC = "hnsw_rs_tpu_torch/csrc/group_min.cu"
 KERNEL_REPLACES = "hnsw_rs_tpu/ops/pallas/l2_groupmin.py:78"
@@ -895,6 +923,198 @@ def cosine_path(dev, ds, t0):
                  d2_err=d2_err, fused_refused=True)
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _sharded_bytes(sh):
+    """Device bytes of a sharded index's serving state: every shard's
+    codes, scales, gids, adjacency layers, packed rows and pivots."""
+    st = sh._stacked
+    tensors = list(st["codes"]) + list(st["scales"]) + list(st["gids"])
+    tensors += [a for layer in st["adjs"] for a in layer]
+    if sh._packed is not None:
+        tensors += [t for part in sh._packed for t in part]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sharded_path(dev, ds, truth, single_build_s, single_qps, t0):
+    """The scale-out layer on one card: ``bench.py``'s configuration over
+    8 shards on ``cuda:0`` (cluster build, ``finalize``, the ladder, QPS,
+    ``add``, ``save``/``load``), then 4 shards at ``CUT_N`` over skewed
+    bounds (the concurrent and the sequential wave build, ``rebalance``)
+    and the rank form's all_gather merge on NCCL at world size 1."""
+    from hnsw_rs_tpu_torch import FlatIndex
+    from hnsw_rs_tpu_torch.parallel import ShardedHNSW, make_mesh, multihost
+    from hnsw_rs_tpu_torch.parallel.sharded import sharded_query
+    from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sh = ShardedHNSW(M, D, n_shards=SHARDS, ef_cons=EF_CONS,
+                     mesh=make_mesh(1, SHARDS, [dev] * SHARDS))
+    sh.insert_bulk(ds.train, cluster_build=True, cluster_kwargs=CLUSTER_KWARGS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    st = sh._stacked
+    on_card(*st["codes"], *st["adjs"][0])
+    if len(sh) != N or list(sh._counts) != [N // SHARDS] * SHARDS:
+        raise AssertionError("sharded build: wrong point count per shard")
+    t0 = phase("sharded_build", t0, n=N, shards=SHARDS, build_s=f"{build_s:.3f}",
+               vec_per_s=f"{N / build_s:.1f}", single_build_s=f"{single_build_s:.3f}",
+               work_vs_single=f"{build_s / single_build_s:.3f}",
+               layers=len(st["adjs"]))
+    # the pivot budget, then the (ef, max_iters) ladder to the first rung
+    # with recall@10 >= 0.99
+    piv = SHARD_PIVOTS
+    t0 = time.perf_counter()
+    sh.finalize(pivots=piv)
+    torch.cuda.synchronize()
+    fin_s = time.perf_counter() - t0
+    if sum(int((p >= 0).sum()) for p in sh._packed[1]) != SHARDS * piv:
+        raise AssertionError("sharded finalize: a shard's pivot budget is unmet")
+    ef, mi, rec, met, ids = first_rung(
+        lambda x, ef_, mi_: sh.ann_batch(x, K, ef_, max_iters=mi_)[1],
+        LADDER, ds.test[:NQ_RECALL], truth, f"sharded pivots={piv}")
+    t0 = phase("sharded_finalize", t0, pivots_per_shard=piv,
+               pivots=SHARDS * piv, finalize_s=f"{fin_s:.3f}", gate_met=met,
+               ef=ef, max_iters=mi, recall=f"{rec:.4f}")
+    if not met or ids.shape != (NQ_RECALL, K) or ids.min() < 0 or ids.max() >= N:
+        raise AssertionError("the sharded index clears no rung at recall@10 >= "
+                             "0.99, or its ids have the wrong shape or values")
+    qps, reps = timed_qps(sh, ds.test, ef, mi)
+    t0 = phase("sharded_serve", t0, pivots_per_shard=piv, ef=ef, max_iters=mi,
+               recall=f"{rec:.4f}",
+               qps=f"{qps:.1f}", batch=NQ, reps=reps, single_qps=f"{single_qps:.1f}",
+               serve_work_vs_single=f"{single_qps / qps:.3f}",
+               bytes_per_point=f"{_sharded_bytes(sh) / N:.1f}",
+               peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+
+    # add 2,048 points: the pack goes stale, so the plain hierarchical
+    # route serves, held to its own recall before the add; truth over
+    # N + 2,048 through K2
+    qd = dequantize(*quantize(torch.from_numpy(ds.test[:NQ_RECALL]).to(dev)))
+    _, before = sharded_query(sh.mesh, st["adjs"], st["codes"], st["scales"],
+                              st["gids"], st["eps"], qd, PLAIN_EF, K, 2 * PLAIN_EF + 16)
+    rec_before = recall_at(before.cpu().numpy(), truth)
+    new = ds.test[NQ - N_INSERT:]
+    t0 = time.perf_counter()
+    gids = sh.add(new)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    if not np.array_equal(gids, np.arange(N, N + N_INSERT)) or len(sh) != N + N_INSERT:
+        raise AssertionError("ShardedHNSW.add returned unexpected ids")
+    _, self_ids = sh.ann_batch(new, K, PLAIN_EF)
+    self_plain = float(np.mean([g in row for g, row in zip(gids, self_ids)]))
+    flat = FlatIndex(D, dev)
+    flat.add(np.concatenate([ds.train, new]))
+    _, truth2 = flat.search(ds.test[:NQ_RECALL], K, fused=True)
+    del flat
+    _, plain_ids = sh.ann_batch(ds.test[:NQ_RECALL], K, PLAIN_EF)
+    rec_plain = recall_at(plain_ids, truth2)
+    if rec_plain < rec_before - 0.01:
+        raise AssertionError(f"after sharded adds: plain recall@10 {rec_plain:.4f} "
+                             f"against {rec_before:.4f} before them")
+    t0 = phase("sharded_add", t0, added=N_INSERT, add_s=f"{add_s:.3f}",
+               counts=json.dumps(sh._counts.tolist()).replace(" ", ""),
+               plain_self_recall=f"{self_plain:.4f}", plain_ef=PLAIN_EF,
+               plain_recall_before=f"{rec_before:.4f}", plain_recall=f"{rec_plain:.4f}")
+
+    path = scratch_dir("sharded_")
+    try:
+        sh.save(path)
+        save_s = time.perf_counter() - t0
+        del sh, st
+        torch.cuda.empty_cache()
+        back = ShardedHNSW.load(path, make_mesh(1, SHARDS, [dev] * SHARDS))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0 - save_s
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    on_card(*back._stacked["codes"])
+    _, back_ids = back.ann_batch(ds.test[:NQ_RECALL], K, PLAIN_EF)
+    if len(back) != N + N_INSERT or not np.array_equal(back_ids, plain_ids):
+        raise AssertionError("a loaded sharded index answers differently")
+    back.finalize(pivots=piv)
+    _, ids2 = back.ann_batch(ds.test[:NQ_RECALL], K, ef, max_iters=mi)
+    rec2 = recall_at(ids2, truth2)
+    _, self_ids = back.ann_batch(new, K, PLAIN_EF)
+    self_rec = float(np.mean([g in row for g, row in zip(gids, self_ids)]))
+    if rec2 < rec - 0.01:
+        raise AssertionError(f"seeded after the add: recall@10 {rec2:.4f} against "
+                             f"{rec:.4f} before it")
+    t0 = phase("sharded_save_load", t0, save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}",
+               ids_equal=True, ef=ef, max_iters=mi, seeded_recall=f"{rec2:.4f}",
+               seeded_self_recall_ef128=f"{self_rec:.4f}")
+    del back
+    torch.cuda.empty_cache()
+
+    # 4 shards at CUT_N over skewed bounds: the concurrent wave build, the
+    # sequential one on the same bounds, then rebalance
+    flat = FlatIndex(D, dev)
+    flat.add(ds.train[:CUT_N])
+    _, truth_opt = flat.search(ds.test[:NQ_RECALL], K, fused=True)
+    del flat
+    bounds = (np.asarray(OPT_SPLIT) * CUT_N).astype(int)
+    mesh4 = make_mesh(1, OPT_SHARDS, [dev] * OPT_SHARDS)
+    recs = {}
+    for name, kw in (("concurrent", {}), ("sequential", {"concurrent": False})):
+        t0 = time.perf_counter()
+        idx = ShardedHNSW(WAVE_M, D, OPT_SHARDS, ef_cons=WAVE_EF_CONS, mesh=mesh4)
+        idx.insert_bulk(ds.train[:CUT_N], partition_bounds=bounds, **kw)
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        recs[name] = recall_at(idx.ann_batch(ds.test[:NQ_RECALL], K, PLAIN_EF)[1],
+                               truth_opt)
+        t0 = phase(f"sharded_wave_{name}", t0, n=CUT_N, shards=OPT_SHARDS,
+                   counts=json.dumps(np.diff(bounds).tolist()).replace(" ", ""),
+                   build_s=f"{b_s:.3f}", recall_ef128=f"{recs[name]:.4f}")
+        if name == "concurrent":
+            conc = idx
+        del idx
+    if recs["concurrent"] < 0.95 or recs["concurrent"] < recs["sequential"] - 0.02:
+        raise AssertionError(f"concurrent wave build recall@10 {recs['concurrent']:.4f}"
+                             f" against the sequential {recs['sequential']:.4f}")
+    moved = conc.rebalance()
+    torch.cuda.synchronize()
+    reb_s = time.perf_counter() - t0
+    _, ids_r = conc.ann_batch(ds.test[:NQ_RECALL], K, PLAIN_EF)
+    rec_r = recall_at(ids_r, truth_opt)
+    if (moved != int(np.maximum(np.diff(bounds) - CUT_N // OPT_SHARDS, 0).sum())
+            or list(conc._counts) != [CUT_N // OPT_SHARDS] * OPT_SHARDS
+            or rec_r < recs["concurrent"] - 0.01):
+        raise AssertionError(f"rebalance moved {moved} to {conc._counts.tolist()}, "
+                             f"recall@10 {rec_r:.4f}")
+    t0 = phase("sharded_rebalance", t0, moved=moved, rebalance_s=f"{reb_s:.3f}",
+               recall_ef128=f"{rec_r:.4f}")
+
+    # the rank form at world size 1 on NCCL: the rank holds all 4 shards,
+    # read from a save, and one all_gather merges them
+    path = scratch_dir("nccl_")
+    try:
+        conc.save(path)
+        multihost.init_distributed(f"tcp://localhost:{_free_port()}", 1, 0, "nccl")
+        try:
+            local = multihost.local_shards(path, multihost.global_mesh(dev),
+                                           range(OPT_SHARDS))
+            _, rank_ids = multihost.rank_sharded_query(
+                local, qd, PLAIN_EF, K, 2 * PLAIN_EF + 16)
+            backend = torch.distributed.get_backend()
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    if backend != "nccl" or not np.array_equal(rank_ids.cpu().numpy(), ids_r):
+        raise AssertionError("the NCCL all_gather merge differs from the in-process ids")
+    del conc, local, qd
+    torch.cuda.empty_cache()
+    return phase("sharded_nccl", t0, backend=backend, world_size=1,
+                 shards=OPT_SHARDS, ids_equal=True)
+
+
 def main():
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -917,6 +1137,7 @@ def main():
     from hnsw_rs_tpu_torch.ops.distance import point_normsq
     from hnsw_rs_tpu_torch.ops.limbs import N_LIMBS, padded_dim
     from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
+    from hnsw_rs_tpu_torch.parallel import ReplicatedHNSW, make_mesh
     from hnsw_rs_tpu_torch.search import (
         _descend, _pivot_seeds_pos, comb_table, search_layer_packed)
     from hnsw_rs_tpu_torch.utils.datasets import synthetic_clustered
@@ -1206,7 +1427,24 @@ def main():
                    qps_ef128=f"{pq_qps:.1f}", reps=reps,
                    bytes_per_point=f"{pq_bytes / N:.1f}",
                    packed_bytes_per_point=f"{packed_pq.numel() / N:.1f}")
-    del index, flat, cb, pq_codes, packed_pq, piv_ids, piv_vecs
+    # ReplicatedHNSW over [cuda:0]: the hierarchical search on its copy
+    # answers as the index's own packed hierarchical route does
+    index.finalize()
+    rep = ReplicatedHNSW(index, make_mesh(1, 1, [dev]))
+    _, rep_ids = rep.ann_batch(ds.test[:NQ_RECALL], K, ef, max_iters=mi)
+    _, one_ids = index.ann_batch(ds.test[:NQ_RECALL], K, ef, max_iters=mi)
+    if index.serving_route() != "packed" or not np.array_equal(rep_ids, one_ids):
+        raise AssertionError("ReplicatedHNSW answers differently from the index")
+    t0 = phase("replicated", t0, route="packed", ef=ef, max_iters=mi,
+               queries=NQ_RECALL, ids_equal=True)
+    del index, flat, cb, pq_codes, packed_pq, piv_ids, piv_vecs, rep
+    torch.cuda.empty_cache()
+
+    # -- the scale-out layer: 8 shards of the same 1M points on this card -------
+    groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    t0 = sharded_path(dev, ds, truth, build_s, qps, time.perf_counter())
+    sharded_launches = groupmin.group_min_d2.launches
+    limb_launches["sharded"] = limbs.query_operands.launches
     torch.cuda.empty_cache()
 
     # -- IVF-Flat and IVF-PQ on the cluster path's points and ground truth ---------
@@ -1354,7 +1592,7 @@ def main():
     # -- the wave build's options, at a smaller depth ------------------------------
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
     flat = FlatIndex(D, dev)
-    flat.add(ds.train[:OPT_N])
+    flat.add(ds.train[:CUT_N])
     _, truth_opt = flat.search(ds.test[:NQ_RECALL], K, fused=True)
     del flat
     opt_launches = groupmin.group_min_d2.launches
@@ -1364,18 +1602,18 @@ def main():
                      ("build_seeded", {"build_seeded": True}),
                      ("build_expand2", {"build_expand": 2})):
         w = HNSW(WAVE_M, ef_cons=WAVE_EF_CONS, dim=D, device=dev)
-        w.insert_bulk(ds.train[:OPT_N], max_iters=2 * WAVE_EF_CONS + 16, **kw)
+        w.insert_bulk(ds.train[:CUT_N], max_iters=2 * WAVE_EF_CONS + 16, **kw)
         torch.cuda.synchronize()
         opt_s = time.perf_counter() - t0
         _, ids = w.ann_batch(ds.test[:NQ_RECALL], K, 128)
         rec_o = recall_at(ids, truth_opt)
         if rec_o < 0.95 or not w.assert_param_compliance(False):
-            raise AssertionError(f"wave build ({name}) at N={OPT_N}: recall@10 "
+            raise AssertionError(f"wave build ({name}) at N={CUT_N}: recall@10 "
                                  f"{rec_o:.4f} at ef=128, or the degree rules broke")
         stages = {k: round(v, 3) for k, v in w.build_phase_s.items()
                   if k.startswith("wave_")}
         del w
-        t0 = phase(f"wave_option_{name}", t0, n=OPT_N, build_s=f"{opt_s:.3f}",
+        t0 = phase(f"wave_option_{name}", t0, n=CUT_N, build_s=f"{opt_s:.3f}",
                    recall_ef128=f"{rec_o:.4f}",
                    stages=json.dumps(stages).replace(" ", ""))
     torch.cuda.empty_cache()
@@ -1391,7 +1629,7 @@ def main():
     cosine_launches = groupmin.group_min_d2.launches
     limb_launches["cosine"] = limbs.query_operands.launches
     torch.cuda.empty_cache()
-    if min(ivf_launches, paged_launches, cosine_launches) < 1:
+    if min(ivf_launches, paged_launches, cosine_launches, sharded_launches) < 1:
         raise AssertionError("a new path's ground truth never launched group_min_d2")
 
     # -- the GloVe gate through the port's CLI, on the card ----------------------
@@ -1424,7 +1662,8 @@ def main():
         "name": "group_min_d2", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES,
         "launches": (launches + ivf_launches + probe_launches + wave_launches
-                     + opt_launches + paged_launches + cosine_launches),
+                     + opt_launches + paged_launches + cosine_launches
+                     + sharded_launches),
         "max_abs_err": max(max_err, err_main), "ms": ms_main,
         "plain_ms": ms_main_plain, "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1], "library_ms": None,
@@ -1432,7 +1671,8 @@ def main():
                                "probe": probe_launches, "wave": wave_launches,
                                "wave_options": opt_launches,
                                "paged": paged_launches,
-                               "cosine": cosine_launches},
+                               "cosine": cosine_launches,
+                               "sharded": sharded_launches},
     }, {
         "name": "pairwise_l2sq_kernel", "route": "cuda", "source": K1_SRC,
         "replaces": K1_REPLACES, "launches": k1_launches,

@@ -4,7 +4,8 @@ The JAX package beside it is the reference; each module here has the
 same name as its counterpart there. This package imports ``torch`` and
 ``numpy`` only. Devices are explicit: every class that holds device state
 (``HNSW``, ``FlatIndex``, ``IVFFlatIndex``, ``IVFPQIndex``,
-``HybridPagedHNSW``) takes one, and nothing picks CUDA or CPU by
+``HybridPagedHNSW``) takes one, ``ShardedHNSW`` and ``ReplicatedHNSW`` a
+mesh of them, and nothing picks CUDA or CPU by
 itself. The hand-written kernels (``csrc/*.cu``) are compiled with
 ``nvcc`` at first use into ``build/torch_kernels/`` (``ops.cuda_build``).
 
@@ -21,6 +22,10 @@ Layer map:
   exact search
 - ``models`` — ``HNSW``, ``FlatIndex``, ``IVFFlatIndex``, ``IVFPQIndex``
   and the out-of-core readers ``PagedHNSW`` / ``HybridPagedHNSW``
+- ``parallel`` — the scale-out layer over a device mesh: ``ShardedHNSW``
+  (one sub-graph per shard, top-k merge), ``ReplicatedHNSW`` (query
+  data-parallelism) and the one-process-per-shard form on
+  ``torch.distributed`` (``parallel.multihost``)
 - ``utils``  — seeded datasets, GloVe loading and exact brute force;
   ``eval_glove`` is the CLI
 """

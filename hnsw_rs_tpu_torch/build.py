@@ -16,8 +16,7 @@ Where the JAX package's functional updates donate their buffers, the
 port updates the adjacency, in-degree ledgers and the packed layer-0
 table in place. The JAX package pads waves to a few bucket sizes to bound
 XLA recompiles; padded lanes carry -1 and change nothing, so the port
-runs unpadded waves. Not ported yet: the stop-layer wave insert of the
-sharded builds (ROADMAP.md queue A).
+runs unpadded waves.
 """
 
 from __future__ import annotations
@@ -270,11 +269,15 @@ def _insert_wave_fused_impl(adjs: list, indegs: list, codes, scales, ids_w,
                             layer_nb: int, extend_cands: bool = True,
                             expand_e: int = 1, packed0=None, comb=None,
                             repack: bool = True, pivot_ids=None,
-                            pivot_vecs=None, phase_s: dict | None = None):
+                            pivot_vecs=None, stop_layer: int = 0,
+                            dedup: bool = False, phase_s: dict | None = None):
     """One whole wave: greedy descent from the entry point down to the
     wave's home layer ``layer_nb``, then (beam search, select) at every
-    layer from ``layer_nb`` down to 0, all against the pre-wave graph;
-    then the applies, layer by layer, in place. ``adjs``/``indegs`` are
+    layer from ``layer_nb`` down to ``stop_layer``, all against the
+    pre-wave graph; then the applies, layer by layer, in place.
+    ``stop_layer`` > 0 leaves the layers below it untouched (a cluster
+    builder owns them); ``dedup`` re-waves existing nodes
+    (:func:`_apply_wave_impl`). ``adjs``/``indegs`` are
     the full layer stacks, layer 0 first. With ``packed0``/``comb``
     (together) layer 0 searches and pools read the packed rows and its
     apply repacks what it rewrote. With ``pivot_ids``/``pivot_vecs`` a
@@ -300,7 +303,7 @@ def _insert_wave_fused_impl(adjs: list, indegs: list, codes, scales, ids_w,
         entry_d2, entry_ids = cur_d2[:, None], cur_ids[:, None]
     _mark(phase_s, "wave_descent", t0, codes.device)
     results = []
-    for lam in range(layer_nb, -1, -1):
+    for lam in range(layer_nb, stop_layer - 1, -1):
         entry_d2, entry_ids = _wave_layer_step_impl(
             adjs[lam], codes, scales, ids_w, entry_d2, entry_ids, ef=ef, m=m,
             max_iters=max_iters, extend_cands=extend_cands, expand_e=expand_e,
@@ -308,14 +311,16 @@ def _insert_wave_fused_impl(adjs: list, indegs: list, codes, scales, ids_w,
         results.append((lam, entry_d2, entry_ids))
     t0 = time.perf_counter()
     adjs, indegs = list(adjs), list(indegs)
+    stale = torch.zeros((), dtype=torch.bool, device=codes.device)
     for lam, sel_d2, sel_ids in results:
         if lam == 0 and packed0 is not None:
             adjs[0], indegs[0], packed0, stale = _apply_wave_impl(
                 adjs[0], indegs[0], codes, scales, ids_w, sel_d2, sel_ids,
-                packed=packed0, comb=comb, repack=repack)
+                packed=packed0, comb=comb, repack=repack, dedup=dedup)
         else:
             adjs[lam], indegs[lam] = _apply_wave_impl(
-                adjs[lam], indegs[lam], codes, scales, ids_w, sel_d2, sel_ids)
+                adjs[lam], indegs[lam], codes, scales, ids_w, sel_d2, sel_ids,
+                dedup=dedup)
     _mark(phase_s, "wave_apply", t0, codes.device)
     if packed0 is None:
         return adjs, indegs
@@ -488,19 +493,20 @@ def insert_waves(graph: LayeredGraph, store: PointStore, params: Params,
                  wave_growth: float = 0.5, wave_cap: int = 4096,
                  build_expand: int = 1,
                  packed_state: PackedBuildState | None = None,
-                 pivots: tuple | None = None,
+                 pivots: tuple | None = None, stop_layer: int = 0,
                  phase_s: dict | None = None) -> None:
     """Insert ``home_ids`` (all of level ``layer_nb``) wave by wave into
     ``graph``, in place: the per-layer analogue of the thread fan-out at
     ``template.rs:403-440``. ``packed_state`` carries the packed layer-0
     table through the waves; ``pivots`` (ids, vectors) seeds layer-0
-    waves; ``phase_s`` collects the waves' stage seconds
+    waves; ``stop_layer`` > 0 inserts only at layers >= ``stop_layer``;
+    ``phase_s`` collects the waves' stage seconds
     (:func:`_insert_wave_fused_impl`)."""
     codes, scales = store.codes, store.scales
     nlayers = len(graph)
     kw = dict(ef=params.ef_cons, m=params.m, max_iters=max_iters,
               layer_nb=layer_nb, extend_cands=params.extend_cands,
-              expand_e=build_expand, phase_s=phase_s)
+              expand_e=build_expand, stop_layer=stop_layer, phase_s=phase_s)
     if pivots is not None:
         kw["pivot_ids"], kw["pivot_vecs"] = pivots
     home = torch.from_numpy(np.asarray(home_ids, np.int32)).to(store.device)

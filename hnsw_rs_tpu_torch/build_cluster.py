@@ -162,17 +162,25 @@ def _table_centroids(codes, scales, table, rchunk: int):
     return torch.cat(cents), torch.cat(reps)
 
 
-def _nbr_clusters(cent, c_fan: int):
+def _nbr_clusters(cent, c_fan: int, live=None):
     """Nearest-cluster fan-out i32[K, c_fan], self exactly first, then the
-    ``c_fan - 1`` nearest other clusters."""
+    ``c_fan - 1`` nearest other clusters; clusters outside the bool[K]
+    ``live`` mask (empty pad rows) are no one's neighbor. Where fewer than
+    ``c_fan - 1`` live others exist (a shard with fewer clusters than the
+    mesh's largest), the missing picks are -1, which the select skips.
+    The JAX package takes ``top_k``'s first index among the masked ties
+    there, which can repeat self and so duplicate edges in a row."""
     k = cent.shape[0]
     iota = torch.arange(k, dtype=torch.int32, device=cent.device)
     if c_fan == 1:
         return iota[:, None]
     c2 = (cent * cent).sum(dim=1)
     cd2 = torch.clamp_min(c2[:, None] + c2[None, :] - 2.0 * (cent @ cent.T), 0.0)
+    if live is not None:
+        cd2 = torch.where(live[None, :], cd2, INF)
     cd2.fill_diagonal_(INF)
-    _, nbr = topk_lowest(cd2, c_fan - 1)
+    d2, nbr = topk_lowest(cd2, c_fan - 1)
+    nbr = torch.where(torch.isinf(d2), -1, nbr)
     return torch.cat([iota[:, None], nbr.to(torch.int32)], dim=1)
 
 

@@ -29,6 +29,32 @@ def _min_d2_to(x: torch.Tensor, xn: torch.Tensor, vecs: torch.Tensor,
     return out
 
 
+def _kcenter(x: torch.Tensor, base_ids: np.ndarray, budget: int, batch: int,
+             n_alive: int | None = None) -> np.ndarray:
+    """Greedy k-center picks over the rows of ``x`` (f32[N, d]), in pick
+    order: ``budget // batch`` rounds, each taking the ``batch`` rows
+    farthest from ``base_ids`` and every earlier pick (farthest first,
+    ties to the lower row). Rows at or past ``n_alive`` start at -inf, so
+    they are picked only once every live row has been. Returns int64
+    row ids (``budget`` of them; a picked row is never picked again while
+    a live row is left)."""
+    n = x.shape[0]
+    xn = (x * x).sum(dim=-1)
+    mind = torch.full((n,), float("inf"), device=x.device)
+    if n_alive is not None:
+        mind[n_alive:] = -float("inf")
+    base = torch.from_numpy(np.asarray(base_ids, np.int64)).to(x.device)
+    for lo in range(0, base.shape[0], batch):
+        mind = _min_d2_to(x, xn, x[base[lo:lo + batch]], mind)
+    picks = []
+    for _ in range(budget // batch):
+        _, top = topk_lowest(-mind, batch)  # farthest first
+        mind = _min_d2_to(x, xn, x[top], mind)
+        mind[top] = -float("inf")  # picked rows are never re-picked
+        picks.append(top)
+    return torch.cat(picks).cpu().numpy().astype(np.int64)
+
+
 def kcenter_fill(x: torch.Tensor, base_ids: np.ndarray, need: int,
                  batch: int = 256) -> np.ndarray:
     """Pick ``need`` coverage pivots from ``x`` (f32[N, d]) farthest from
@@ -42,16 +68,5 @@ def kcenter_fill(x: torch.Tensor, base_ids: np.ndarray, need: int,
     if need <= 0:
         return np.zeros((0,), np.int64)
     batch = int(min(batch, need))
-    xn = (x * x).sum(dim=-1)
-    mind = torch.full((n,), float("inf"), device=x.device)
-    base = torch.from_numpy(base_ids).to(x.device)
-    for lo in range(0, base.shape[0], batch):
-        mind = _min_d2_to(x, xn, x[base[lo:lo + batch]], mind)
-    picks = []
-    for _ in range(-(-need // batch)):
-        _, top = topk_lowest(-mind, batch)  # farthest first
-        mind = _min_d2_to(x, xn, x[top], mind)
-        mind[top] = -float("inf")  # picked rows are never re-picked
-        picks.append(top)
-    picks = torch.cat(picks)[:need].cpu().numpy().astype(np.int64)
+    picks = _kcenter(x, base_ids, -(-need // batch) * batch, batch)[:need]
     return np.unique(picks[~np.isin(picks, base_ids)])

@@ -304,9 +304,10 @@ def test_repair_connectivity_matches():
 
 def test_wave_builder_is_not_ported():
     """The wave build's options that used to raise here (E>1 expansion,
-    wave_sort, build_seeded) build now, as its default E=1 path does; what
-    stays unported is the stop-layer insert of the sharded builds. The
-    name dates from when the whole wave build raised."""
+    wave_sort, build_seeded) build now, as its default E=1 path does.
+    ``stop_layer`` belongs to ``insert_waves`` alone, as in the JAX
+    package, so ``build_index`` refuses it. The name dates from when the
+    whole wave build raised."""
     store = PointStore.from_vectors(np.zeros((4, 3), np.float32), 0.5, "cpu")
     for kw in ({}, {"build_expand": 2}, {"wave_sort": True},
                {"build_seeded": True}):
@@ -314,3 +315,34 @@ def test_wave_builder_is_not_ported():
         assert creps is None and packed0 is not None and len(graph) >= 1, kw
     with pytest.raises(TypeError, match="stop_layer"):
         build_index(store, Params(m=4, dim=3), stop_layer=1)
+
+
+def test_insert_waves_stop_layer_matches_jax():
+    """``insert_waves(stop_layer=1)``: the level >= 1 nodes inserted top
+    down into an empty graph in both packages give the JAX package's
+    upper layers row for row, and layer 0 stays empty (a cluster builder
+    owns it)."""
+    from hnsw_rs_tpu.build import insert_waves as j_insert_waves
+    from hnsw_rs_tpu.params import Params as JParams
+    from hnsw_rs_tpu_torch.build import insert_waves as t_insert_waves
+
+    codes, scales = _data(21, n=600)
+    levels = sample_levels(600, 1 / np.log(8), seed=0)
+    top = int(levels.max())
+    ep = int(np.flatnonzero(levels == top)[0])
+    jg, tg = JGraph(8, 600), TGraph(8, 600, "cpu")
+    jg.ensure_level(top)
+    tg.ensure_level(top)
+    js, ts = JStore(*J(codes, scales), levels), PointStore(*T(codes, scales), levels)
+    jp, tp = JParams(m=8, dim=16, ef_cons=24), Params(m=8, dim=16, ef_cons=24)
+    for lam in range(top, 0, -1):
+        home = np.flatnonzero(levels == lam).astype(np.int32)
+        j_insert_waves(jg, js, jp, home, lam, ep, 64, stop_layer=1)
+        t_insert_waves(tg, ts, tp, home, lam, ep, 64, stop_layer=1)
+    assert top >= 2
+    for lam in range(1, top + 1):
+        np.testing.assert_array_equal(tg.get_layer(lam).numpy(),
+                                      np.asarray(jg.get_layer(lam)))
+        assert torch.equal(tg.indeg(lam), recount_indeg(tg.get_layer(lam)))
+    assert bool((tg.get_layer(0) == -1).all()) and not bool(tg.indeg(0).any())
+    assert bool((np.asarray(jg.get_layer(0)) == -1).all())

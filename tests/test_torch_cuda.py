@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the sm_90a group-min (K2)
 and all-pairs L2 (K1) kernels against their plain versions, and the
 port's device paths (cluster and wave builds, serving, inserts, the IVF
-families, the flat forms and the paged tiers) against its own CPU paths. Every test is marked ``cuda`` and skips without a
+families, the flat forms, the paged tiers and the sharded layer) against
+its own CPU paths. Every test is marked ``cuda`` and skips without a
 card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -524,3 +525,83 @@ def test_paged_tiers_on_card_match_in_memory(dev, tmp_path):
     flat.add(ds.train)
     _, si = PagedHNSW(path).store.search_streaming(ds.test, 10, device=dev)
     np.testing.assert_array_equal(si, flat.search(ds.test, 10, exact=True)[1])
+
+
+def _sharded_state(n, shards, device, seed=3):
+    from hnsw_rs_tpu_torch.parallel import ShardedHNSW, make_mesh
+
+    ds = synthetic_clustered(n, 32, n_queries=256, seed=seed)
+    index = ShardedHNSW(8, 32, shards, mesh=make_mesh(1, shards, [device] * shards))
+    index.insert_bulk(ds.train)
+    return ds, index
+
+
+def test_sharded_query_on_card_matches_cpu(dev, tmp_path):
+    """The in-process sharded query answers on ``cuda:0`` as the same
+    saved state does on the CPU: the plain route, then the seeded one
+    after ``finalize`` with the CPU's pivots (ids equal on >= 99% of the
+    entries: the card's products may swap near-ties). The card's own
+    ``finalize`` meets every shard's budget with distinct live rows; its
+    rows are not compared with the CPU's, because one swapped near-tie in
+    the farthest-first k-center fill changes every later pick."""
+    from hnsw_rs_tpu_torch.parallel import ShardedHNSW, make_mesh
+
+    ds, cpu = _sharded_state(4000, 4, "cpu")
+    cpu.save(str(tmp_path / "s"))
+    card = ShardedHNSW.load(str(tmp_path / "s"), make_mesh(1, 4, [dev] * 4))
+    assert all(t.device.type == dev.type for t in card._stacked["codes"])
+    same = np.mean(card.ann_batch(ds.test, 10, 48)[1]
+                   == cpu.ann_batch(ds.test, 10, 48)[1])
+    assert same >= 0.99, same
+    cpu.finalize(pivots=256)
+    card.finalize(pivots=256)
+    for s, row in enumerate(card._packed[1]):
+        row = row.cpu().numpy()
+        assert row.size == 256 and np.unique(row).size == 256, s
+        assert row.min() >= 0 and row.max() < card._counts[s], s
+    card._packed = (card._packed[0], [t.to(dev) for t in cpu._packed[1]],
+                    [t.to(dev) for t in cpu._packed[2]])
+    same = np.mean(card.ann_batch(ds.test, 10, 48)[1]
+                   == cpu.ann_batch(ds.test, 10, 48)[1])
+    assert same >= 0.99, same
+
+
+def test_sharded_scrub_and_indegree_on_card_match_cpu(dev):
+    """``_scrub_stacked`` (stable left-compaction) and ``_indeg_stacked``
+    (integer scatter-add) on the card equal the CPU's, stacked and per
+    shard."""
+    from hnsw_rs_tpu_torch.parallel.sharded import _indeg_stacked, _scrub_stacked
+
+    rng = np.random.default_rng(0)
+    a = rng.integers(-1, 5000, (3, 5000, 16)).astype(np.int32)
+    rem = rng.random((3, 5000)) < 0.1
+    at, rt = torch.from_numpy(a), torch.from_numpy(rem)
+    want_a, want_c = _scrub_stacked(at, rt, rt)
+    got_a, got_c = _scrub_stacked(at.to(dev), rt.to(dev), rt.to(dev))
+    assert torch.equal(got_a.cpu(), want_a) and torch.equal(got_c.cpu(), want_c)
+    assert torch.equal(_indeg_stacked(at.to(dev)).cpu(), _indeg_stacked(at))
+    assert torch.equal(_indeg_stacked(at[1].to(dev)).cpu(), _indeg_stacked(at)[1])
+
+
+def test_sharded_cluster_build_on_card_clears_recall(dev):
+    """A 20k concurrent cluster build over 4 shards on the card clears
+    recall@10 0.95 through the seeded route, and its orphan fixpoint
+    leaves every live layer-0 row with an out-edge and an in-edge."""
+    from hnsw_rs_tpu_torch.parallel import ShardedHNSW, make_mesh
+
+    ds = synthetic_clustered(20_000, 32, n_queries=256, seed=4)
+    index = ShardedHNSW(12, 32, 4, ef_cons=48, mesh=make_mesh(1, 4, [dev] * 4))
+    index.insert_bulk(ds.train, cluster_build=True,
+                      cluster_kwargs={"pool_p": 96, "points_per_cluster": 96,
+                                      "fanout": 5, "select_alg4": False,
+                                      "merge_slots": 48})
+    assert all(t.device.type == dev.type for t in index._stacked["adjs"][0])
+    index.finalize(pivots=1024)
+    truth = brute_force_nns(ds.test, *quantize(torch.from_numpy(ds.train).to(dev)), 10)
+    ids = index.ann_batch(ds.test, 10, 64)[1]
+    rec = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, truth)])
+    assert rec >= 0.95, rec
+    for s, a0 in enumerate(index._stacked["adjs"][0]):
+        a0 = a0.cpu().numpy()[: int(index._counts[s])]
+        indeg = np.bincount(a0[a0 >= 0], minlength=a0.shape[0])
+        assert np.all((a0 >= 0).sum(1) > 0) and np.all(indeg > 0), s

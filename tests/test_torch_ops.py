@@ -8,6 +8,7 @@ the d products in different orders.
 """
 
 import ast
+import os
 import pathlib
 
 import jax.numpy as jnp
@@ -23,6 +24,16 @@ from hnsw_rs_tpu_torch.ops import quant as tquant
 from hnsw_rs_tpu_torch.ops import topk as ttopk
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "hnsw_rs_tpu_torch"
+
+# Under pytest-xdist every worker imports every test file while it
+# collects, so this sets torch's intra-op threads for each whole worker:
+# n workers that each run one thread per core oversubscribe the host, and
+# torch's threads then wait on one another (the port's test files under
+# six workers on an 8-core host: 688-822 s with one thread per core in
+# each worker, 145-162 s with this).
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 def _vectors(seed, n=3000, d=96):
@@ -151,6 +162,8 @@ def test_port_imports_no_jax():
     banned = ("jax", "jaxlib", "hnsw_rs_tpu")
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     assert len(files) >= 15
+    assert {PKG / "parallel" / f"{m}.py" for m in (
+        "mesh", "replicated", "sharded", "sharded_cluster", "multihost")} <= set(files)
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
