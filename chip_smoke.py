@@ -93,6 +93,33 @@ Phases, one line each with its time:
    concurrent wave build against the sequential one, ``rebalance`` and
    its recall; the rank form's ``all_gather`` merge on NCCL at world
    size 1 equal to the in-process ids.
+17. the native host helpers (``native/``): both libraries built with
+   ``g++`` (the run fails without them), the GloVe parse equal to
+   Python's; then, with the kernel builds finished and nothing else
+   running, the single-core C++ baseline on the host's CPU at
+   ``bench.py:147-158``'s slice (the first 50,000 of the cluster path's
+   points, M=24, ef_cons=128): build vec/s, QPS of 1,000 queries at ef=64
+   one at a time, recall@10 against exact truth over the slice, ``nproc``
+   and the CPU model;
+18. in the paged path, before the hybrid tier's phases (which now take
+   their cold rows from the native assembler): the same cold ids
+   assembled natively and in numpy, bytes equal, ms a call of 128 rows;
+19. on the cluster path's index after ``ReplicatedHNSW``:
+   ``export_reference_index`` into ``build/`` and
+   ``import_reference_index`` on the card: codes, scales, levels, params,
+   every layer's rows and the recounted in-degree ledgers equal, and
+   equal ids for 4,096 queries through the packed hierarchical route;
+20. the ann-benchmarks protocol at ``glove-100-angular``'s shape (d=100,
+   angular, 10,000 queries, k=10; N cut from 1,183,514 to 131,072): truth
+   through ``FlatIndex(metric="cosine").search(fused=True)`` (K2),
+   ``ANNBenchmarksFlat`` (recall >= 0.999), ``ANNBenchmarksHNSW(M=16,
+   efConstruction=96)`` over ef 16...256 (recall and QPS a rung, the run
+   fails under 0.95 at ef=256; ``get_memory_usage``) and
+   ``ANNBenchmarksIVF(n_list=512)`` over probes 1...64; ``query`` equal to
+   the first row of ``batch_query`` on each;
+21. the entry points (``entry.py``, the twin of ``__graft_entry__.py``):
+   ``entry("cuda")``'s step and its output
+   shapes, then ``dryrun_multichip(8, "cuda")`` and its line.
 
 Before the paths, the query limb split (the pre-pass K1 and K2 launch
 ahead of their kernels) against ``ops/limbs.query_limbs``: limbs and
@@ -174,6 +201,16 @@ RAW_N = 16384  # the raw-float FlatIndex against its exact form
 SHARDS, OPT_SHARDS, PLAIN_EF = 8, 4, 128
 SHARD_PIVOTS = 65536
 OPT_SPLIT = [0.0, 0.3, 0.55, 0.8, 1.0]
+# the single-core C++ baseline on bench.py:147-158's slice of the cluster
+# path's points (the whole 1M would take hours on one core)
+BASE_N, BASE_NQ, BASE_EF = 50_000, 1000, 64
+# the paged tier's cold-row assembly: calls of ~an E=1 iteration's cold rows
+ASSEMBLY_ROWS, ASSEMBLY_CALLS = 128, 40
+# ann-benchmarks at the shape of its glove-100-angular set (d=100, angular,
+# 10,000 queries, k=10), N cut from 1,183,514 for the clock
+ANNB_N, ANNB_D, ANNB_NQ = 131_072, 100, 10_000
+ANNB_EFS = [16, 32, 64, 128, 256]  # hnsw_rs_tpu/annb.py:20-26's query-args
+ANNB_PROBES = [1, 2, 4, 8, 16, 32, 64]
 LIMB_SRC = "hnsw_rs_tpu_torch/csrc/dist_core.cuh"
 KERNEL_SRC = "hnsw_rs_tpu_torch/csrc/group_min.cu"
 KERNEL_REPLACES = "hnsw_rs_tpu/ops/pallas/l2_groupmin.py:78"
@@ -820,6 +857,7 @@ def _paged_serve(dev, ds, index, path, t0):
     hyb.ann_batch(ds.test[:32], K, PAGED_EF)  # warm
     t0 = phase("paged_hybrid_open", t0, hot_rows=hyb.hot_rows,
                device_bytes_per_point=f"{(hyb.device_bytes + hyb.pivot_bytes) / PAGED_N:.1f}")
+    t0 = paged_assembly(hyb, t0)
     for e in (1, 4):
         hyb.hits = hyb.misses = 0
         ts = time.perf_counter()
@@ -869,6 +907,217 @@ def _paged_serve(dev, ds, index, path, t0):
     return phase("paged_streaming", t0, qps=f"{PAGED_NQ / dt:.1f}",
                  ids_equal_flat_exact=True,
                  fused_id_match=f"{parity(si, fused_ids):.4f}")
+
+
+def python_glove(path):
+    """The GloVe parse in Python: the native parser's reference."""
+    words, vecs = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.rstrip("\n").split(" ")
+            words.append(parts[0])
+            vecs.append(np.asarray(parts[1:], np.float32))
+    return words, np.stack(vecs)
+
+
+def native_build(t0):
+    """Both native libraries built from the checkout's sources (``g++``
+    required), and the native GloVe parse against the Python one."""
+    from hnsw_rs_tpu_torch import native
+
+    ts = time.perf_counter()
+    lib, base = native.get_lib(), native.get_baseline_lib()
+    compile_s = time.perf_counter() - ts
+    if lib is None or base is None:
+        raise AssertionError("no g++ on PATH: the native libraries were not built")
+    store = os.path.join(ROOT, "test-data", "store.txt")
+    nw, nv = native.load_glove_native(store)
+    pw, pv = python_glove(store)
+    err = float(np.abs(nv - pv).max())
+    if nw != pw or nv.shape != pv.shape or err > 2e-6:
+        raise AssertionError(f"native GloVe parse differs from Python (max err {err})")
+    return phase("native_build", t0, libraries="fastio,baseline_hnsw",
+                 compile_s=f"{compile_s:.3f}", glove_rows=len(nw),
+                 glove_max_abs_err=err)
+
+
+def cpu_baseline(dev, ds, t0):
+    """The single-core C++ HNSW baseline on this host's CPU: a build of
+    the first ``BASE_N`` points at M=24, ef_cons=128 (vec/s), then
+    ``BASE_NQ`` queries one at a time at ef=64 (QPS) over the same index,
+    which ``baseline_query_rate`` builds again first (untimed); recall@10
+    against exact truth over the slice. The two calls run one after the
+    other, with nothing else on the host."""
+    from hnsw_rs_tpu_torch import FlatIndex, native
+
+    base = ds.train[:BASE_N]
+    secs, rate = native.baseline_build_rate(base, M, EF_CONS)
+    qps, ids = native.baseline_query_rate(base, ds.test[:BASE_NQ], M, BASE_EF, K, EF_CONS)
+    flat = FlatIndex(D, dev)
+    flat.add(base)
+    _, truth = flat.search(ds.test[:BASE_NQ], K, exact=True)
+    rec = recall_at(ids, truth)
+    cpu = native.cpu_info()
+    if rec < 0.9 or ids.min() < 0 or ids.max() >= BASE_N:
+        raise AssertionError(f"CPU baseline: recall@10 {rec:.4f}, or ids out of range")
+    return phase("cpu_baseline", t0, n=BASE_N, m=M, ef_cons=EF_CONS,
+                 build_s=f"{secs:.3f}", vec_per_s=f"{rate:.1f}", ef=BASE_EF,
+                 queries=BASE_NQ, qps=f"{qps:.1f}", recall=f"{rec:.4f}",
+                 nproc=os.cpu_count(),
+                 cpu=repr(cpu["model name"]), vendor=cpu.get("vendor_id"),
+                 family_model=f"{cpu.get('cpu family')}/{cpu.get('model')}")
+
+
+def paged_assembly(hyb, t0):
+    """The hybrid tier's cold rows assembled both ways on the same ids:
+    the native assembler and its numpy version, bytes equal, ms a call."""
+    cold = np.flatnonzero(hyb._slot_host < 0)
+    rng = np.random.default_rng(5)
+    calls = [rng.choice(cold, ASSEMBLY_ROWS, replace=False)
+             for _ in range(ASSEMBLY_CALLS)]
+    for ids in calls[:4]:
+        if not np.array_equal(hyb._packed_rows_host(ids), hyb._packed_rows_numpy(ids)):
+            raise AssertionError("the native cold-row assembler differs from numpy")
+    ms = {}
+    for name, fn in (("native", hyb._packed_rows_host), ("numpy", hyb._packed_rows_numpy),
+                     ("native2", hyb._packed_rows_host), ("numpy2", hyb._packed_rows_numpy)):
+        ts = time.perf_counter()
+        for ids in calls:
+            fn(ids)
+        ms[name] = (time.perf_counter() - ts) * 1e3 / ASSEMBLY_CALLS
+    return phase("paged_assembly", t0, rows_per_call=ASSEMBLY_ROWS,
+                 calls=ASSEMBLY_CALLS, bytes_equal=True,
+                 native_ms=f"{ms['native']:.3f},{ms['native2']:.3f}",
+                 numpy_ms=f"{ms['numpy']:.3f},{ms['numpy2']:.3f}",
+                 row_bytes=hyb._wrow)
+
+
+def annb_path(dev, t0):
+    """The ann-benchmarks protocol at glove-100-angular's shape through the
+    three adapters, against exact truth from ``FlatIndex(fused=True)``
+    (K2)."""
+    from hnsw_rs_tpu_torch import FlatIndex
+    from hnsw_rs_tpu_torch.annb import (
+        ANNBenchmarksFlat, ANNBenchmarksHNSW, ANNBenchmarksIVF)
+    from hnsw_rs_tpu_torch.utils.datasets import synthetic_clustered
+
+    ds = synthetic_clustered(ANNB_N, ANNB_D, n_queries=ANNB_NQ, seed=42)
+    train, test = ds.train, ds.test
+    flat = FlatIndex(ANNB_D, dev, metric="cosine")
+    flat.add(train)
+    _, truth = flat.search(test, K, fused=True)
+    del flat
+    t0 = phase("annb_data", t0, n=ANNB_N, cut_from=1_183_514, d=ANNB_D,
+               metric="angular", queries=ANNB_NQ)
+
+    def ladder(algo, args):
+        rows = {}
+        for a in args:
+            algo.set_query_arguments(a)
+            algo.batch_query(test, K)  # warm
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            algo.batch_query(test, K)
+            dt = time.perf_counter() - ts
+            ids = algo.get_batch_results()
+            if ids.shape != (ANNB_NQ, K) or list(algo.query(test[0], K)) != list(ids[0]):
+                raise AssertionError(f"{algo}: query() differs from batch_query()")
+            rows[a] = (recall_at(ids, truth), ANNB_NQ / dt)
+        return rows
+
+    exact = ANNBenchmarksFlat("angular", device=dev)
+    exact.fit(train)
+    (rec_flat, qps_flat), = ladder(exact, [None]).values()
+    if rec_flat < 0.999:
+        raise AssertionError(f"ANNBenchmarksFlat recall@10 {rec_flat:.4f}")
+    t0 = phase("annb_flat", t0, recall=f"{rec_flat:.4f}", qps=f"{qps_flat:.1f}")
+    del exact
+
+    algo = ANNBenchmarksHNSW("angular", {"M": 16, "efConstruction": 96}, device=dev)
+    algo.fit(train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    on_card(algo._index.points.codes, algo._index._packed0)
+    rows = ladder(algo, ANNB_EFS)
+    if rows[ANNB_EFS[-1]][0] < 0.95:
+        raise AssertionError(f"ANNBenchmarksHNSW recall@10 {rows[ANNB_EFS[-1]][0]:.4f} "
+                             f"at ef={ANNB_EFS[-1]}")
+    t0 = phase("annb_hnsw", t0, fit_s=f"{fit_s:.3f}", route=algo._index.serving_route(),
+               memory_kb=algo.get_memory_usage(),
+               **{f"ef{a}": f"{r:.4f}@{q:.1f}qps" for a, (r, q) in rows.items()})
+    del algo
+
+    ivf = ANNBenchmarksIVF("angular", {"n_list": 512}, device=dev)
+    ivf.fit(train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rows = ladder(ivf, ANNB_PROBES)
+    return phase("annb_ivf", t0, fit_s=f"{fit_s:.3f}", n_list=512,
+                 **{f"p{a}": f"{r:.4f}@{q:.1f}qps" for a, (r, q) in rows.items()})
+
+
+def codec_path(dev, index, ef, mi, queries, t0):
+    """``export_reference_index`` of the cluster path's index, then
+    ``import_reference_index`` on the card: equal arrays and ledgers, and
+    equal ids through the packed hierarchical route."""
+    from hnsw_rs_tpu_torch.graphs import recount_indeg
+    from hnsw_rs_tpu_torch.utils.serializer import (
+        export_reference_index, import_reference_index)
+
+    path = scratch_dir("codec_")
+    try:
+        ts = time.perf_counter()
+        export_reference_index(index, path)
+        write_s = time.perf_counter() - ts
+        disk = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(path) for f in fs)
+        ts = time.perf_counter()
+        back = import_reference_index(path, dev)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - ts
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    n = len(index)
+    on_card(back.points.codes, back.points.scales, *back.graph.adjs)
+    p, q = index.params, back.params
+    same = (len(back) == n and len(back.graph) == len(index.graph)
+            and torch.equal(back.points.codes, index.points.codes[:n])
+            and torch.equal(back.points.scales, index.points.scales[:n])
+            and np.array_equal(back.points.levels, index.points.levels[:n])
+            and all(getattr(p, f) == getattr(q, f)
+                    for f in ("m", "mmax", "mmax0", "ef_cons", "dim", "ep"))
+            and abs(p.ml - q.ml) <= 1e-7 * p.ml)
+    for lay in range(len(index.graph)):
+        adj = index.graph.get_layer(lay)[:n]
+        same = (same and torch.equal(back.graph.get_layer(lay), adj)
+                and torch.equal(back.graph.indeg(lay), recount_indeg(adj)))
+    if not same:
+        raise AssertionError("the imported index differs from the exported one")
+    back.finalize()
+    _, ids = index.ann_batch(queries, K, ef, max_iters=mi)
+    _, back_ids = back.ann_batch(queries, K, ef, max_iters=mi)
+    if back.serving_route() != index.serving_route() or not np.array_equal(ids, back_ids):
+        raise AssertionError("the imported index answers differently")
+    return phase("codec", t0, n=n, layers=len(index.graph), write_s=f"{write_s:.3f}",
+                 read_s=f"{read_s:.3f}", disk_bytes_per_point=f"{disk / n:.1f}",
+                 arrays_equal=True, ledgers_equal=True, route=back.serving_route(),
+                 queries=len(queries), ids_equal=True)
+
+
+def entry_path(dev, t0):
+    """The port's entry points (``entry.py``) on the card."""
+    from hnsw_rs_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry(dev)
+    on_card(args[1], args[2], args[3], *args[0])
+    dist, ids = fn(*args)
+    if (tuple(dist.shape) != (64, 10) or tuple(ids.shape) != (64, 10)
+            or not bool(torch.isfinite(dist).all())):
+        raise AssertionError("entry(): the step's outputs have the wrong shape or values")
+    dryrun_multichip(8, dev)
+    return phase("entry", t0, step_out=[tuple(dist.shape), tuple(ids.shape)],
+                 self_match=f"{float((ids[:, 0].cpu() == torch.arange(64)).float().mean()):.4f}",
+                 dryrun_devices=8)
 
 
 def cosine_path(dev, ds, t0):
@@ -1157,8 +1406,13 @@ def main():
     t0 = phase("build", t0, libraries=",".join(lib.name for lib in libs),
                tensor_core_instructions=json.dumps(tensor_ops).replace(" ", ""))
 
+    t0 = native_build(t0)
+
     ds = synthetic_clustered(N, D, n_queries=NQ, seed=42)
     t0 = phase("data", t0, n=N, d=D, queries=NQ)
+    # the host's single-core baseline, with the kernel builds finished and
+    # nothing else running
+    t0 = cpu_baseline(dev, ds, t0)
 
     # -- the query limb split vs its plain version --------------------------------
     # corner rows first (all zero, a power-of-two maximum, a row below
@@ -1437,6 +1691,7 @@ def main():
         raise AssertionError("ReplicatedHNSW answers differently from the index")
     t0 = phase("replicated", t0, route="packed", ef=ef, max_iters=mi,
                queries=NQ_RECALL, ids_equal=True)
+    t0 = codec_path(dev, index, ef, mi, ds.test[:NQ_RECALL], t0)
     del index, flat, cb, pq_codes, packed_pq, piv_ids, piv_vecs, rep
     torch.cuda.empty_cache()
 
@@ -1629,7 +1884,13 @@ def main():
     cosine_launches = groupmin.group_min_d2.launches
     limb_launches["cosine"] = limbs.query_operands.launches
     torch.cuda.empty_cache()
-    if min(ivf_launches, paged_launches, cosine_launches, sharded_launches) < 1:
+    groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    t0 = annb_path(dev, t0)
+    annb_launches = groupmin.group_min_d2.launches
+    limb_launches["annb"] = limbs.query_operands.launches
+    torch.cuda.empty_cache()
+    if min(ivf_launches, paged_launches, cosine_launches, sharded_launches,
+           annb_launches) < 1:
         raise AssertionError("a new path's ground truth never launched group_min_d2")
 
     # -- the GloVe gate through the port's CLI, on the card ----------------------
@@ -1658,12 +1919,14 @@ def main():
         t0 = phase(f"eval_glove_{model}", t0, **{
             r[0].replace("=", ""): f"{r[1]}@{r[2]}qps" for r in rows})
 
+    t0 = entry_path(dev, t0)
+
     print(json.dumps({"kernels": [{
         "name": "group_min_d2", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES,
         "launches": (launches + ivf_launches + probe_launches + wave_launches
                      + opt_launches + paged_launches + cosine_launches
-                     + sharded_launches),
+                     + sharded_launches + annb_launches),
         "max_abs_err": max(max_err, err_main), "ms": ms_main,
         "plain_ms": ms_main_plain, "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1], "library_ms": None,
@@ -1672,7 +1935,8 @@ def main():
                                "wave_options": opt_launches,
                                "paged": paged_launches,
                                "cosine": cosine_launches,
-                               "sharded": sharded_launches},
+                               "sharded": sharded_launches,
+                               "annb": annb_launches},
     }, {
         "name": "pairwise_l2sq_kernel", "route": "cuda", "source": K1_SRC,
         "replaces": K1_REPLACES, "launches": k1_launches,

@@ -26,8 +26,18 @@ Layer map:
   (one sub-graph per shard, top-k merge), ``ReplicatedHNSW`` (query
   data-parallelism) and the one-process-per-shard form on
   ``torch.distributed`` (``parallel.multihost``)
-- ``utils``  — seeded datasets, GloVe loading and exact brute force;
-  ``eval_glove`` is the CLI
+- ``utils``  — seeded and ann-benchmarks HDF5 datasets, GloVe loading and
+  exact brute force, the reference-format codec (``utils.serializer``),
+  logging and ``torch.profiler`` traces, progress bars, random vectors
+  and ground-truth fixtures; ``eval_glove`` is the CLI
+- ``native`` — the host helpers in C++ (``native/*.cpp``, built with
+  ``g++`` at first use into ``build/native/``): the GloVe parser,
+  positioned block reads, the paged tier's cold-row assembler, a host
+  quantizer, and the single-core CPU HNSW baseline
+- ``annb``   — ann-benchmarks adapters (``ANNBenchmarksHNSW``,
+  ``ANNBenchmarksFlat``, ``ANNBenchmarksIVF``)
+- ``entry``  — the entry points ``entry`` and ``dryrun_multichip`` (the
+  twin of ``__graft_entry__.py``)
 """
 
 from .models.flat import FlatIndex

@@ -2,9 +2,10 @@
 reference's ``eval_glove`` binary, ``eval_glove/src/main.rs:17-121``): a
 timed bulk build, one incremental insert, exact brute-force truth, a
 recall/QPS sweep over ef values, an optional save/reload round trip, the
-compliance check and the nearest-word REPL; ``--model flat|ivf|pq``
-evaluates the other families on the same data. ``--import-reference`` is
-not ported and raises.
+compliance check and the nearest-word REPL; ``--import-reference DIR``
+evaluates an index in the Rust reference's directory format
+(``utils.serializer``) in place of a build; ``--model flat|ivf|pq``
+evaluates the other families on the same data.
 
 Run: ``python -m hnsw_rs_tpu_torch.eval_glove --device cuda [--m 12] [--ef 50 100]``
 """
@@ -34,9 +35,6 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> int:
     args = eval_parser().parse_args(argv)
-    if args.import_reference:
-        raise NotImplementedError("--import-reference is not ported yet "
-                                  "(ROADMAP.md queue A)")
     device = torch.device(args.device)
     verbose = not args.quiet
 
@@ -49,6 +47,13 @@ def main(argv=None) -> int:
         t0 = time.time()
         index = HNSW.load(args.load, device)
         print(f"loaded index from {args.load} in {time.time() - t0:.2f}s")
+    elif args.import_reference:
+        from .utils.serializer import import_reference_index
+
+        t0 = time.time()
+        index = import_reference_index(args.import_reference, device)
+        print(f"imported reference index from {args.import_reference} in "
+              f"{time.time() - t0:.2f}s")
     else:
         index = HNSW(args.m, ef_cons=args.ef_cons, dim=stored.shape[1],
                      metric=args.metric, device=device)

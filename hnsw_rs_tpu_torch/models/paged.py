@@ -90,11 +90,12 @@ class PagedHNSW:
     def __init__(self, path: str, cache_blocks: int = 1024):
         with open(os.path.join(path, _META_FILE)) as f:
             meta = json.load(f)
+        self._adj_path = os.path.join(path, _ADJ_FILE)
+        self._blocks_path = os.path.join(path, _POINTS_FILE)
         self.n = int(meta["n"])
         self.params = Params.from_dict(meta["params"])
-        self.store = BlockStore(os.path.join(path, _POINTS_FILE),
-                                cache_blocks=cache_blocks)
-        self.adj0 = np.memmap(os.path.join(path, _ADJ_FILE), dtype=np.int32,
+        self.store = BlockStore(self._blocks_path, cache_blocks=cache_blocks)
+        self.adj0 = np.memmap(self._adj_path, dtype=np.int32,
                               mode="r", shape=(self.n, int(meta["cap0"])))
         with np.load(os.path.join(path, _UPPER_FILE)) as z:
             self.upper = [z[f"adj_{i}"] for i in range(1, int(meta["n_layers"]))]
@@ -210,8 +211,20 @@ class PagedHNSW:
     def _packed_rows_host(self, ids: np.ndarray) -> np.ndarray:
         """Packed rows (``search.pack_layer``'s byte layout: ``cap*d`` code
         bytes, ``cap*8`` little-endian scale bytes, ``cap*4`` id bytes) of
-        ``ids``, assembled on the host in numpy from the memmap adjacency
-        and the paged blocks (whose scales are big-endian on disk)."""
+        ``ids``, assembled on the host by the native assembler
+        (``native/fastio.cpp``: one pass over the memory-mapped adjacency
+        and block files, the big-endian scales swapped in place), or by
+        :meth:`_packed_rows_numpy` without ``g++``."""
+        from ..native import assemble_packed_rows
+
+        out = assemble_packed_rows(self._adj_path, self.n, self.adj0.shape[1],
+                                   self._blocks_path, self.store.dim,
+                                   self.store.max_per_block, ids)
+        return self._packed_rows_numpy(ids) if out is None else out
+
+    def _packed_rows_numpy(self, ids: np.ndarray) -> np.ndarray:
+        """:meth:`_packed_rows_host` in numpy, through the BlockStore LRU:
+        the native assembler's plain version."""
         ids = np.asarray(ids, np.int64).ravel()
         cap = self.adj0.shape[1]
         d = self.store.dim

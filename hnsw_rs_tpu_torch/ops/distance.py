@@ -22,6 +22,20 @@ def l2sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (d * d).sum(dim=-1)
 
 
+def l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """True L2 (sqrt of :func:`l2sq`), the reference's ``distance`` value."""
+    return torch.sqrt(l2sq(a, b))
+
+
+def l2sq_quant(q: torch.Tensor, codes: torch.Tensor,
+               scales: torch.Tensor) -> torch.Tensor:
+    """Squared L2 from a dequantized query ``q`` f32[..., d] to quantized
+    points ``codes`` u8[..., d] with ``scales`` f32[..., 2], broadcast
+    over the leading axes (``QuantVec::distance_unrolled``,
+    ``vectors/src/quant.rs:14-37``)."""
+    return l2sq(q, dequantize(codes, scales))
+
+
 def pairwise_l2sq_exact(
     q: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor
 ) -> torch.Tensor:

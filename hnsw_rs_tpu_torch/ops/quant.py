@@ -12,6 +12,7 @@ off true division.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 BITS = 8
@@ -31,6 +32,31 @@ def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     t = torch.where(pos, (x - mn) / torch.where(pos, delta, 1.0), 0.0)
     codes = torch.clamp(torch.floor(t + 0.5), 0.0, LEVELS).to(torch.uint8)
     return codes, torch.cat([mn, delta], dim=-1)
+
+
+def quantize_np(x) -> tuple[np.ndarray, np.ndarray]:
+    """Host twin of :func:`quantize`: numpy in, numpy out, codes and
+    scales bit for bit equal to it (the same IEEE f32 operations in the
+    same order). From 1,024 rows on it takes the native single-pass
+    quantizer (``native.quantize_rows``), as
+    ``hnsw_rs_tpu/ops/quant.py:57-66`` does; numpy is its plain version.
+    The build path quantizes on the index's device
+    (``store.PointStore.from_vectors``); this is the host API."""
+    x = np.asarray(x, np.float32)
+    if x.ndim == 2 and x.shape[0] >= 1024:
+        from ..native import quantize_rows
+
+        out = quantize_rows(x)
+        if out is not None:
+            return out
+    mn = np.min(x, axis=-1, keepdims=True)
+    mx = np.max(x, axis=-1, keepdims=True)
+    delta = (mx - mn) / np.float32(LEVELS)
+    safe = np.where(delta > 0.0, delta, 1.0).astype(np.float32)
+    t = np.where(delta > 0.0, (x - mn) / safe, 0.0).astype(np.float32)
+    codes = np.clip(np.floor(t + np.float32(0.5)), 0.0, LEVELS).astype(np.uint8)
+    scales = np.concatenate([mn, delta], axis=-1).astype(np.float32)
+    return codes, scales
 
 
 def dequantize(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

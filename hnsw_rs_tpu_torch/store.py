@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.distance import l2sq
+from .ops.distance import l2sq, l2sq_quant
 from .ops.quant import dequantize, quantize
 
 MAX_LEVEL = 31  # safety cap; with ml = 1/ln(m) real levels stay far below
@@ -73,6 +73,15 @@ class PointStore:
     @property
     def capacity(self) -> int:
         return int(self.codes.shape[0])
+
+    @property
+    def dim(self) -> int | None:
+        """Vector dimension, or None while the store is empty."""
+        return int(self.codes.shape[1]) if len(self) else None
+
+    def ids(self) -> np.ndarray:
+        """Live ids, int32[len(self)] (ids are row positions)."""
+        return np.arange(len(self), dtype=np.int32)
 
     def _grow_to(self, cap: int) -> None:
         """Grow the capacity arrays to ``cap`` rows, poisoning the pads."""
@@ -130,3 +139,11 @@ class PointStore:
         (``SimplePoints::distance``, ``points/src/points.rs:88-96``)."""
         x = dequantize(self.codes[[a, b]], self.scales[[a, b]])
         return float(torch.sqrt(l2sq(x[0], x[1])))
+
+    def distance_to_vector(self, vector, idx: int) -> float:
+        """L2 from a raw vector to point ``idx``; the vector is quantized
+        and dequantized first, as the reference quantizes every query
+        (``template.rs:313``, ``SimplePoints::distance2point``)."""
+        x = torch.as_tensor(np.asarray(vector, np.float32), device=self.device)
+        q = dequantize(*quantize(x))
+        return float(torch.sqrt(l2sq_quant(q, self.codes[idx], self.scales[idx])))

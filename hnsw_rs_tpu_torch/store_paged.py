@@ -119,8 +119,12 @@ class BlockStore:
         return FILE_HEADER + block_id * self._block_bytes
 
     def _read_bytes(self, offset: int, nbytes: int) -> np.ndarray:
-        """A positioned read: no shared file position, so the prefetch
-        thread reads beside the query thread."""
+        """A positioned read on the store's open file: no shared file
+        position, so the prefetch thread reads beside the query thread.
+        The JAX package reads through ``native.pread_block``, which opens
+        the file on every call; on the H100 host that took 110.88 us a
+        block against 6.49 us here (``chip_smoke.py``'s
+        ``paged_assembly``, ``PERF.md`` §6), so the port keeps this read."""
         return np.frombuffer(os.pread(self._fd, nbytes, offset), np.uint8)
 
     def _load_block(self, block_id: int):

@@ -59,8 +59,7 @@ def eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--save", default=None, help="save the index to this dir")
     p.add_argument("--load", default=None, help="load an index instead of building")
     p.add_argument("--import-reference", default=None,
-                   help="import a reference-format (Rust hnsw_rs) index dir "
-                   "(not ported yet)")
+                   help="import a reference-format (Rust hnsw_rs) index dir")
     p.add_argument("--words", action="store_true",
                    help="interactive nearest-word REPL after evaluation")
     p.add_argument("--quiet", action="store_true")

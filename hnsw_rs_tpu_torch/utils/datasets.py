@@ -1,13 +1,16 @@
-"""Seeded synthetic benchmark data: a copy of ``synthetic_clustered``,
-``synthetic_heavy_tailed`` and ``Dataset`` from
-``hnsw_rs_tpu/utils/datasets.py``. The same seed draws
-the same numpy stream, so both packages see bit-identical vectors. The
-ann-benchmarks HDF5 loader is not ported yet.
+"""Benchmark datasets: the ann-benchmarks HDF5 layout and seeded
+synthetic stand-ins. A copy of ``hnsw_rs_tpu/utils/datasets.py``: the
+same seed draws the same numpy stream, so both packages see
+bit-identical vectors, and either package reads the HDF5 files the
+other writes (datasets ``train``, ``test``, ``neighbors``,
+``distances``; attribute ``distance``). ``h5py`` is imported only by
+the two HDF5 functions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -22,6 +25,45 @@ class Dataset:
     neighbors: np.ndarray | None  # int32 [Q, k] ground truth (may be None)
     distances: np.ndarray | None  # float32 [Q, k]
     metric: str = "l2"  # "l2" | "cosine"
+
+
+def load_ann_benchmarks_hdf5(path: str, limit: int = 0) -> Dataset:
+    """Read an ann-benchmarks HDF5 file (glove-*-angular,
+    sift-128-euclidean, ...). ``limit`` truncates the train set; the
+    ground truth then refers to the full set and is dropped."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise RuntimeError("h5py is required to read ann-benchmarks HDF5 "
+                           "files") from e
+    with h5py.File(path, "r") as f:
+        train = np.asarray(f["train"], np.float32)
+        test = np.asarray(f["test"], np.float32)
+        neighbors = np.asarray(f["neighbors"], np.int32) if "neighbors" in f else None
+        distances = np.asarray(f["distances"], np.float32) if "distances" in f else None
+        metric = f.attrs.get("distance", b"euclidean")
+        if isinstance(metric, bytes):
+            metric = metric.decode()
+    if limit and limit < train.shape[0]:
+        train = train[:limit]
+        neighbors = distances = None
+    name = os.path.splitext(os.path.basename(path))[0]
+    metric = "cosine" if metric in ("angular", "cosine") else "l2"
+    return Dataset(name, train, test, neighbors, distances, metric)
+
+
+def write_ann_benchmarks_hdf5(path: str, ds: Dataset) -> None:
+    """Write the ann-benchmarks layout (fixtures and round trips)."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        f.create_dataset("train", data=ds.train)
+        f.create_dataset("test", data=ds.test)
+        if ds.neighbors is not None:
+            f.create_dataset("neighbors", data=ds.neighbors)
+        if ds.distances is not None:
+            f.create_dataset("distances", data=ds.distances)
+        f.attrs["distance"] = "angular" if ds.metric == "cosine" else "euclidean"
 
 
 def synthetic_clustered(

@@ -2,7 +2,8 @@
 ``hnsw_rs_tpu/utils/glove.py``, the reference's ``hnsw/src/helpers/glove.rs``).
 
 ``load_glove_array`` parses "word v1 v2 ..." rows (``glove.rs:14-71``)
-with numpy; ``brute_force_nns`` (``glove.rs:73-109``) computes exact
+with the native parser (``native/fastio.cpp``), or in Python without
+``g++``; ``brute_force_nns`` (``glove.rs:73-109``) computes exact
 neighbors in the direct (diff-square) form on the store's device, tiled
 over the queries and over the collection.
 """
@@ -23,7 +24,16 @@ def load_glove_array(path: str, limit: int = 0,
                      verbose: bool = False) -> tuple[list[str], np.ndarray]:
     """Load up to ``limit`` rows (0 = all) of a GloVe text file: (words,
     float32[N, d]). Raises on ragged rows, as the reference does
-    (``glove.rs:56-65``)."""
+    (``glove.rs:56-65``). The native parser reads it where ``g++`` is on
+    ``PATH`` (``native.load_glove_native``); the Python loop below is its
+    plain version."""
+    from ..native import load_glove_native
+
+    native = load_glove_native(path, limit)
+    if native is not None:
+        if verbose:
+            print(f"loaded {len(native[0])} rows from {path}", flush=True)
+        return native
     words: list[str] = []
     vecs: list[np.ndarray] = []
     with open(path, "r", encoding="utf-8") as f:

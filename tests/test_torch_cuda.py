@@ -605,3 +605,84 @@ def test_sharded_cluster_build_on_card_clears_recall(dev):
         a0 = a0.cpu().numpy()[: int(index._counts[s])]
         indeg = np.bincount(a0[a0 >= 0], minlength=a0.shape[0])
         assert np.all((a0 >= 0).sum(1) > 0) and np.all(indeg > 0), s
+
+
+def test_hybrid_tier_on_the_native_assembler(dev, tmp_path, monkeypatch):
+    """The hybrid exact tier with half its rows cold: every cold row comes
+    from the native assembler (counted), byte for byte its numpy version's,
+    and the tier returns the in-memory index's ids at E=1 and E=4."""
+    from hnsw_rs_tpu_torch import native
+    from hnsw_rs_tpu_torch.models.paged import HybridPagedHNSW, save_paged
+
+    assert native.get_lib() is not None, "g++ is needed on the card's host"
+    ds = synthetic_clustered(20_000, 32, n_queries=64, seed=9)
+    idx = HNSW(12, ef_cons=48, dim=32, device=dev)
+    idx.insert_bulk(ds.train)
+    idx.finalize(pivots=1024)
+    path = str(tmp_path / "paged")
+    save_paged(idx, path)
+    calls = []
+    real = native.assemble_packed_rows
+    monkeypatch.setattr(native, "assemble_packed_rows",
+                        lambda *a: calls.append(len(a[-1])) or real(*a))
+    wrow = idx.graph.get_layer(0).shape[1] * (32 + 12)
+    hy = HybridPagedHNSW(path, hot_bytes=10_000 * wrow, pivots=1024, device=dev)
+    ids = np.arange(0, 20_000, 97)
+    np.testing.assert_array_equal(hy._packed_rows_host(ids), hy._packed_rows_numpy(ids))
+    for e in (1, 4):
+        idx.serve_expand = e
+        _, mi = idx.ann_batch(ds.test, 10, 48)
+        calls.clear()
+        hy.misses = 0
+        _, yi = hy.ann_batch(ds.test, 10, 48, expand_e=e)
+        np.testing.assert_array_equal(yi, mi)
+        assert hy.misses > 0 and sum(calls) == hy.misses
+    hy.close()
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "angular"])
+def test_annb_adapters_on_card(dev, metric):
+    """The three ann-benchmarks adapters on the card: HNSW recall@10 >=
+    0.95 against the exact adapter, within 0.01 of the same adapter on
+    the CPU; IVF at full probe exact; the single query equals the batch's
+    first row."""
+    from hnsw_rs_tpu_torch.annb import (
+        ANNBenchmarksFlat, ANNBenchmarksHNSW, ANNBenchmarksIVF)
+
+    ds = synthetic_clustered(20_000, 48, n_queries=128, seed=5)
+    exact = ANNBenchmarksFlat(metric)
+    exact.fit(ds.train)
+    exact.batch_query(ds.test, 10)
+    truth = exact.get_batch_results()
+    assert exact._index.codes.is_cuda
+    recs = []
+    for device in ("cuda", "cpu"):
+        algo = ANNBenchmarksHNSW(metric, {"M": 16, "efConstruction": 96}, device=device)
+        algo.fit(ds.train)
+        algo.set_query_arguments(64)
+        algo.batch_query(ds.test, 10)
+        recs.append(_recall10(algo.get_batch_results(), truth))
+        assert list(algo.query(ds.test[0], 10)) == list(algo.get_batch_results()[0])
+        assert algo.get_memory_usage() > 0
+    assert recs[0] >= 0.95 and abs(recs[0] - recs[1]) <= 0.01, recs
+    ivf = ANNBenchmarksIVF(metric, {"n_list": 64})
+    ivf.fit(ds.train)
+    ivf.set_query_arguments(64)
+    ivf.batch_query(ds.test, 10)
+    assert _recall10(ivf.get_batch_results(), truth) >= 0.999
+
+
+def test_entry_on_card(dev, capsys):
+    """``entry("cuda")``'s step on the card returns the CPU step's ids on
+    >= 99% of entries, and ``dryrun_multichip(8, "cuda")`` passes."""
+    from hnsw_rs_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry("cuda")
+    assert args[1].is_cuda and args[3].is_cuda
+    dist, ids = fn(*args)
+    cfn, cargs = entry("cpu")
+    _, cids = cfn(*cargs)
+    assert ids.shape == (64, 10) and bool(torch.isfinite(dist).all())
+    assert np.mean(ids.cpu().numpy() == cids.numpy()) >= 0.99
+    dryrun_multichip(8, "cuda")
+    assert "dryrun_multichip ok on 8 devices" in capsys.readouterr().out

@@ -164,6 +164,10 @@ def test_port_imports_no_jax():
     assert len(files) >= 15
     assert {PKG / "parallel" / f"{m}.py" for m in (
         "mesh", "replicated", "sharded", "sharded_cluster", "multihost")} <= set(files)
+    assert {PKG / f for f in (
+        "annb.py", "entry.py", "native/__init__.py", "utils/serializer.py",
+        "utils/data.py", "utils/logging.py", "utils/progress.py",
+        "utils/rand.py")} <= set(files)
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -174,3 +178,67 @@ def test_port_imports_no_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, f"{f}: imports {name}"
+
+
+def test_native_sources_stand_alone():
+    """The port builds its native libraries from its own copies: no
+    ``#include`` of a local header, nothing from the JAX package."""
+    sources = sorted((PKG / "native").glob("*.cpp"))
+    assert [f.name for f in sources] == ["baseline_hnsw.cpp", "fastio.cpp"]
+    for f in sources:
+        for line in f.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert "<" in line and "hnsw_rs_tpu" not in line, f"{f}: {line}"
+
+
+# names of the JAX package that exist only for JAX or the TPU: jit
+# wrappers and compile buckets, lazy imports, NamedSharding helpers, the
+# TPU VM's hugepage fix, and fixed native cache paths (the port keys each
+# library by source, flags and CPU model)
+_JAX_ONLY = {
+    "__init__.py": {"__getattr__", "_disable_numpy_thp_madvise"},
+    "models/__init__.py": {"__getattr__"},
+    "build.py": {"_any_bad_jit", "_bucket"},
+    "build_cluster.py": {"_kmeans_fused", "_recount_indeg"},
+    "models/flat.py": {"_on_tpu"},
+    "models/hnsw.py": {"_ann_jit", "_ann_packed_jit", "_ann_pq_jit",
+                       "_ann_seeded_jit", "_ann_seeded_plain_jit",
+                       "_ann_seeded_probe_jit", "_ann_seeded_probe_packed_jit"},
+    "models/ivf.py": {"_assign_jit"},
+    "models/paged.py": {"_hyb_pick", "_lazy_jits", "_paged_pq_jit"},
+    "native/__init__.py": {"_SO", "_BASE_SO", "_build"},
+    "parallel/mesh.py": {"data_sharding", "replicated", "shard_sharding"},
+    "parallel/sharded_cluster.py": {"_unwrap"},
+}
+
+
+def _top_names(path: pathlib.Path) -> set[str]:
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                names |= {f"{node.name}.{b.name}" for b in node.body
+                          if isinstance(b, ast.FunctionDef)}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets
+                      if isinstance(t, ast.Name) and t.id.isupper()}
+    return names
+
+
+def test_port_covers_every_jax_name():
+    """Every module, top-level def/class (with its methods) and constant of
+    the JAX package has its namesake in the port, but for the JAX-only
+    names above; the Pallas kernels are ported as ``csrc/``."""
+    jax_pkg = PKG.parent / "hnsw_rs_tpu"
+    missing = {}
+    for f in sorted(jax_pkg.rglob("*.py")):
+        rel = f.relative_to(jax_pkg).as_posix()
+        if rel.startswith("ops/pallas/"):
+            continue
+        twin = PKG / rel
+        have = _top_names(twin) if twin.exists() else set()
+        gone = _top_names(f) - have - _JAX_ONLY.get(rel, set())
+        if gone:
+            missing[rel] = sorted(gone)
+    assert not missing, missing

@@ -113,13 +113,15 @@ def test_eval_cli_end_to_end(tmp_path, capsys):
 
 
 def test_eval_cli_needs_a_device_and_rejects_unported_models(capsys):
-    """``--device`` is required and ``--import-reference`` is the one
-    route that still raises; ``--model flat``, which used to, runs and is
-    exact."""
+    """``--device`` is required; every route is ported now, so
+    ``--import-reference`` of a directory that does not exist fails on
+    the missing file (its working run is in ``test_torch_serializer.py``);
+    ``--model flat``, which used to raise, runs and is exact."""
     with pytest.raises(SystemExit):
         main(["--store", STORE])
-    with pytest.raises(NotImplementedError, match="import-reference"):
-        main(["--device", "cpu", "--import-reference", "x"])
+    with pytest.raises(FileNotFoundError, match="points"):
+        main(["--device", "cpu", "--store", STORE, "--lim", "10",
+              "--import-reference", "no_such_dir"])
     rc = main(["--device", "cpu", "--store", STORE, "--queries", QUERIES,
                "--lim", "300", "--model", "flat", "--quiet"])
     assert rc == 0
