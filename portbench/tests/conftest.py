@@ -1,0 +1,15 @@
+"""Tests of the benchmark harness (run with ``pytest portbench/tests``).
+The harness's own files are imported from the checkout root."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; the test skips itself without one")
