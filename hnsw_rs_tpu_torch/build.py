@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from .build_cluster import _mark, _orphan_fix, build_layer0_clustered, repair_orphans
+from .build_cluster import _orphan_fix, build_layer0_clustered, repair_orphans
 from .graphs import LayeredGraph
 from .heuristic import select_heuristic, select_heuristic_packed
 from .ops.distance import l2sq, point_normsq
@@ -46,6 +46,7 @@ from .search import (
     seed_entry,
 )
 from .store import PointStore
+from .utils.logging import span
 
 log = logging.getLogger(__name__)
 
@@ -103,27 +104,25 @@ def _wave_layer_step_impl(adj, codes, scales, ids_w, entry_d2, entry_ids,
     iterations at a held pool quality; E=1 is the reference's order.
     ``phase_s``: when a dict, the seconds of the beam and of the select
     are added to its ``wave_beam`` and ``wave_select``."""
-    t0 = time.perf_counter()
-    safe = ids_w.clamp(0, codes.shape[0] - 1).long()
-    q = dequantize(codes[safe], scales[safe])
-    if packed is not None:
-        beam_d2, beam_ids = search_layer_packed(
-            packed, q, entry_d2, entry_ids, ef, max_iters, expand_e=expand_e,
-            forbid=ids_w)
-        t0 = _mark(phase_s, "wave_beam", t0, codes.device)
-        sel = select_heuristic_packed(
-            packed, codes, scales, q, beam_d2, beam_ids, m,
-            extend_cands=extend_cands, keep_pruned=True, forbid=ids_w)
-    else:
-        beam_d2, beam_ids = search_layer(adj, codes, scales, q, entry_d2,
-                                         entry_ids, ef, max_iters, forbid=ids_w,
-                                         expand_e=expand_e)
-        t0 = _mark(phase_s, "wave_beam", t0, codes.device)
-        sel = select_heuristic(adj, codes, scales, q, beam_d2, beam_ids, m,
-                               extend_cands=extend_cands, keep_pruned=True,
-                               forbid=ids_w)
-    _mark(phase_s, "wave_select", t0, codes.device)
-    return sel
+    with span("hnsw.build.wave_beam", phase_s, codes.device):
+        safe = ids_w.clamp(0, codes.shape[0] - 1).long()
+        q = dequantize(codes[safe], scales[safe])
+        if packed is not None:
+            beam_d2, beam_ids = search_layer_packed(
+                packed, q, entry_d2, entry_ids, ef, max_iters,
+                expand_e=expand_e, forbid=ids_w)
+        else:
+            beam_d2, beam_ids = search_layer(
+                adj, codes, scales, q, entry_d2, entry_ids, ef, max_iters,
+                forbid=ids_w, expand_e=expand_e)
+    with span("hnsw.build.wave_select", phase_s, codes.device):
+        if packed is not None:
+            return select_heuristic_packed(
+                packed, codes, scales, q, beam_d2, beam_ids, m,
+                extend_cands=extend_cands, keep_pruned=True, forbid=ids_w)
+        return select_heuristic(adj, codes, scales, q, beam_d2, beam_ids, m,
+                                extend_cands=extend_cands, keep_pruned=True,
+                                forbid=ids_w)
 
 
 def _pack_rows(comb, adj, rows, d: int):
@@ -289,19 +288,18 @@ def _insert_wave_fused_impl(adjs: list, indegs: list, codes, scales, ids_w,
     seconds are added to its ``wave_descent``, ``wave_beam``,
     ``wave_select`` and ``wave_apply`` (the device is drained at each
     stage's end)."""
-    t0 = time.perf_counter()
-    safe = ids_w.clamp(0, codes.shape[0] - 1).long()
-    q = dequantize(codes[safe], scales[safe])
-    if pivot_vecs is not None and layer_nb == 0:
-        entry_d2, entry_ids = _pivot_seeds(pivot_ids, pivot_vecs, q, ef)
-    else:
-        e_d2, e_ids = seed_entry(codes, scales, q, ep)
-        cur_d2, cur_ids = e_d2[:, 0], e_ids[:, 0]
-        for lam in range(len(adjs) - 1, layer_nb, -1):
-            cur_d2, cur_ids = greedy_descent(adjs[lam], codes, scales, q,
-                                             cur_d2, cur_ids, forbid=ids_w)
-        entry_d2, entry_ids = cur_d2[:, None], cur_ids[:, None]
-    _mark(phase_s, "wave_descent", t0, codes.device)
+    with span("hnsw.build.wave_descent", phase_s, codes.device):
+        safe = ids_w.clamp(0, codes.shape[0] - 1).long()
+        q = dequantize(codes[safe], scales[safe])
+        if pivot_vecs is not None and layer_nb == 0:
+            entry_d2, entry_ids = _pivot_seeds(pivot_ids, pivot_vecs, q, ef)
+        else:
+            e_d2, e_ids = seed_entry(codes, scales, q, ep)
+            cur_d2, cur_ids = e_d2[:, 0], e_ids[:, 0]
+            for lam in range(len(adjs) - 1, layer_nb, -1):
+                cur_d2, cur_ids = greedy_descent(adjs[lam], codes, scales, q,
+                                                 cur_d2, cur_ids, forbid=ids_w)
+            entry_d2, entry_ids = cur_d2[:, None], cur_ids[:, None]
     results = []
     for lam in range(layer_nb, stop_layer - 1, -1):
         entry_d2, entry_ids = _wave_layer_step_impl(
@@ -309,19 +307,18 @@ def _insert_wave_fused_impl(adjs: list, indegs: list, codes, scales, ids_w,
             max_iters=max_iters, extend_cands=extend_cands, expand_e=expand_e,
             packed=packed0 if lam == 0 else None, phase_s=phase_s)
         results.append((lam, entry_d2, entry_ids))
-    t0 = time.perf_counter()
     adjs, indegs = list(adjs), list(indegs)
-    stale = torch.zeros((), dtype=torch.bool, device=codes.device)
-    for lam, sel_d2, sel_ids in results:
-        if lam == 0 and packed0 is not None:
-            adjs[0], indegs[0], packed0, stale = _apply_wave_impl(
-                adjs[0], indegs[0], codes, scales, ids_w, sel_d2, sel_ids,
-                packed=packed0, comb=comb, repack=repack, dedup=dedup)
-        else:
-            adjs[lam], indegs[lam] = _apply_wave_impl(
-                adjs[lam], indegs[lam], codes, scales, ids_w, sel_d2, sel_ids,
-                dedup=dedup)
-    _mark(phase_s, "wave_apply", t0, codes.device)
+    with span("hnsw.build.wave_apply", phase_s, codes.device):
+        stale = torch.zeros((), dtype=torch.bool, device=codes.device)
+        for lam, sel_d2, sel_ids in results:
+            if lam == 0 and packed0 is not None:
+                adjs[0], indegs[0], packed0, stale = _apply_wave_impl(
+                    adjs[0], indegs[0], codes, scales, ids_w, sel_d2, sel_ids,
+                    packed=packed0, comb=comb, repack=repack, dedup=dedup)
+            else:
+                adjs[lam], indegs[lam] = _apply_wave_impl(
+                    adjs[lam], indegs[lam], codes, scales, ids_w, sel_d2,
+                    sel_ids, dedup=dedup)
     if packed0 is None:
         return adjs, indegs
     return adjs, indegs, packed0, stale
@@ -607,9 +604,8 @@ def build_index(store: PointStore, params: Params, verbose: bool = False,
                                    member_ids=mem, phase_s=phase_s, **kw)
         cluster_pivots = build_layer0_clustered(graph, store, params,
                                                 phase_s=phase_s, **kw)
-        t0 = time.perf_counter()
-        repair_connectivity(graph, store)
-        _mark(phase_s, "connectivity", t0, dev)
+        with span("hnsw.build.connectivity", phase_s, dev):
+            repair_connectivity(graph, store)
         return graph, ep, None, cluster_pivots
 
     if max_iters is None:
@@ -638,20 +634,21 @@ def build_index(store: PointStore, params: Params, verbose: bool = False,
                                           store.scales[piv_dev.long()]))
     for layer_nb in range(top, -1, -1):
         t0 = time.perf_counter()
-        home = np.flatnonzero(levels == layer_nb).astype(np.int32)
-        if proj is not None and home.size > 1:
-            home = home[np.argsort(proj[home], kind="stable")]
-        insert_waves(graph, store, params, home, layer_nb, ep, max_iters,
-                     wave_base, wave_growth, wave_cap, build_expand,
-                     packed_state=state,
-                     pivots=pivots if layer_nb == 0 else None, phase_s=phase_s)
-        _mark(phase_s, f"layer{layer_nb}", t0, dev)
+        with span("hnsw.build.layer", phase_s, dev, key=f"layer{layer_nb}",
+                  layer=layer_nb):
+            home = np.flatnonzero(levels == layer_nb).astype(np.int32)
+            if proj is not None and home.size > 1:
+                home = home[np.argsort(proj[home], kind="stable")]
+            insert_waves(graph, store, params, home, layer_nb, ep, max_iters,
+                         wave_base, wave_growth, wave_cap, build_expand,
+                         packed_state=state,
+                         pivots=pivots if layer_nb == 0 else None,
+                         phase_s=phase_s)
         if verbose:
             print(f"building HNSW index: layer {layer_nb}, {home.size} nodes "
                   f"in {time.perf_counter() - t0:.2f}s", flush=True)
-    t0 = time.perf_counter()
-    fixes = repair_connectivity(graph, store)
-    if state is not None and fixes:
-        state.refresh(graph, store)  # the host repair bypassed the tracking
-    _mark(phase_s, "connectivity", t0, dev)
+    with span("hnsw.build.connectivity", phase_s, dev):
+        fixes = repair_connectivity(graph, store)
+        if state is not None and fixes:
+            state.refresh(graph, store)  # the host repair bypassed the tracking
     return graph, ep, (state.packed0 if state is not None else None), None

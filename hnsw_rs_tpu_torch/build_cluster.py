@@ -24,8 +24,6 @@ scatter-add, matrix products) can move near-ties.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -33,6 +31,7 @@ from .graphs import recount_indeg
 from .heuristic import _accept_from_pool
 from .ops.quant import dequantize
 from .ops.topk import INF, PAD_ID, lex_perm, sort_dist_id, topk_lowest
+from .utils.logging import span
 
 __all__ = ["kmeans", "build_layer0_clustered"]
 
@@ -411,18 +410,6 @@ def repair_orphans(adj, indeg, rounds: int = 10):
     return adj, indeg
 
 
-def _mark(phase_s: dict | None, key: str, t0: float, device) -> float:
-    """Add the time since ``t0`` to ``phase_s[key]`` (after the device
-    has drained) and return the new start time; no-op without a dict."""
-    if phase_s is None:
-        return t0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t = time.perf_counter()
-    phase_s[key] = phase_s.get(key, 0.0) + t - t0
-    return t
-
-
 def build_layer0_clustered(
     graph,
     store,
@@ -457,105 +444,115 @@ def build_layer0_clustered(
         return None
     dev = store.device
     pre = "" if layer_nb == 0 else "upper_"
-    t0 = time.perf_counter()
     codes, scales = store.codes, store.scales
     if member_ids is None:
         nm = n
         mem = None
-        mcodes, mscales = codes, scales
     else:
         mem = np.asarray(member_ids, np.int32)
         nm = mem.size
         if nm == 0:
             return None
-        mem_dev = torch.from_numpy(mem.astype(np.int64)).to(dev)
-        mcodes, mscales = codes[mem_dev], scales[mem_dev]
     adj = graph.get_layer(layer_nb)
     m = params.m
     cap = graph.layer_cap(layer_nb)
     reps = None
 
     if mem is not None and layer_nb > 0 and nm <= exact_layers:
-        nm_pad = max(256, 1 << (nm - 1).bit_length())
-        mem_pad = np.full((nm_pad,), -1, np.int32)
-        mem_pad[:nm] = mem
-        mem_all = torch.from_numpy(mem_pad).to(dev)
-        bq = min(batch_queries, nm_pad)
-        sels = []
-        for base in range(0, nm, bq):
-            qc = np.full((bq,), -1, np.int32)
-            take = min(bq, nm - base)
-            qc[:take] = mem[base : base + take]
-            sels.append(_exact_sel_step_impl(
-                codes, scales, torch.from_numpy(qc).to(dev), mem_all,
-                m=m, pool_p=pool_p, select_alg4=select_alg4,
-            ))
-        t0 = _mark(phase_s, pre + "select", t0, dev)
+        with span("hnsw.build.select", phase_s, dev, key=pre + "select",
+                  layer=layer_nb):
+            nm_pad = max(256, 1 << (nm - 1).bit_length())
+            mem_pad = np.full((nm_pad,), -1, np.int32)
+            mem_pad[:nm] = mem
+            mem_all = torch.from_numpy(mem_pad).to(dev)
+            bq = min(batch_queries, nm_pad)
+            sels = []
+            for base in range(0, nm, bq):
+                qc = np.full((bq,), -1, np.int32)
+                take = min(bq, nm - base)
+                qc[:take] = mem[base : base + take]
+                sels.append(_exact_sel_step_impl(
+                    codes, scales, torch.from_numpy(qc).to(dev), mem_all,
+                    m=m, pool_p=pool_p, select_alg4=select_alg4,
+                ))
     else:
-        k = max(1, min(nm, -(-nm // points_per_cluster)))
-        _, assign = kmeans(mcodes, mscales, k, iters=kmeans_iters)
-        t0 = _mark(phase_s, pre + "kmeans", t0, dev)
+        with span("hnsw.build.kmeans", phase_s, dev, key=pre + "kmeans",
+                  layer=layer_nb):
+            if mem is None:
+                mcodes, mscales = codes, scales
+            else:
+                mem_dev = torch.from_numpy(mem.astype(np.int64)).to(dev)
+                mcodes, mscales = codes[mem_dev], scales[mem_dev]
+            k = max(1, min(nm, -(-nm // points_per_cluster)))
+            _, assign = kmeans(mcodes, mscales, k, iters=kmeans_iters)
 
-        smax = max(8, int(np.ceil(nm / k * smax_headroom / 8)) * 8)
-        # spatial key for chunking oversized clusters: one random
-        # projection with the JAX package's seed
-        r = np.random.default_rng(11).standard_normal(
-            mcodes.shape[1]).astype(np.float32)
-        proj = (dequantize(mcodes, mscales) @ torch.from_numpy(r).to(dev)).cpu().numpy()
-        assign_np, k = _split_oversized(assign.cpu().numpy(), k, smax, keys=proj)
-        table, overflow = _member_tables(assign_np, k, smax)
-        if overflow:
-            raise AssertionError(
-                f"member-table overflow ({overflow}) after _split_oversized")
-        if mem is not None:
-            # member tables hold member-local positions: map to global ids
-            table = np.where(table >= 0, mem[np.clip(table, 0, nm - 1)], -1)
-        member_dev = torch.from_numpy(table).to(dev)
-        # exact per-row centroids after the split (Lloyd centroids are
-        # stale for pseudo-clusters, and identical siblings would tie)
-        rch = min(1024, max(8, 1 << max(k - 1, 1).bit_length()))
-        cent, reps_dev = _table_centroids(codes, scales, member_dev, rch)
-        nbrcl = _nbr_clusters(cent, min(fanout, k))
-        t0 = _mark(phase_s, pre + "tables", t0, dev)
+        with span("hnsw.build.tables", phase_s, dev, key=pre + "tables",
+                  layer=layer_nb):
+            smax = max(8, int(np.ceil(nm / k * smax_headroom / 8)) * 8)
+            # spatial key for chunking oversized clusters: one random
+            # projection with the JAX package's seed
+            r = np.random.default_rng(11).standard_normal(
+                mcodes.shape[1]).astype(np.float32)
+            proj = (dequantize(mcodes, mscales)
+                    @ torch.from_numpy(r).to(dev)).cpu().numpy()
+            assign_np, k = _split_oversized(assign.cpu().numpy(), k, smax,
+                                            keys=proj)
+            table, overflow = _member_tables(assign_np, k, smax)
+            if overflow:
+                raise AssertionError(
+                    f"member-table overflow ({overflow}) after _split_oversized")
+            if mem is not None:
+                # member tables hold member-local positions: map to global ids
+                table = np.where(table >= 0, mem[np.clip(table, 0, nm - 1)], -1)
+            member_dev = torch.from_numpy(table).to(dev)
+            # exact per-row centroids after the split (Lloyd centroids are
+            # stale for pseudo-clusters, and identical siblings would tie)
+            rch = min(1024, max(8, 1 << max(k - 1, 1).bit_length()))
+            cent, reps_dev = _table_centroids(codes, scales, member_dev, rch)
+            nbrcl = _nbr_clusters(cent, min(fanout, k))
 
-        g = max(1, batch_queries // smax)
-        sels = []
-        for base in range(0, k, g):
-            cl = np.full((g,), -1, np.int32)
-            take = min(g, k - base)
-            cl[:take] = np.arange(base, base + take, dtype=np.int32)
-            sels.append(_cluster_sel_step_impl(
-                codes, scales, member_dev, nbrcl, torch.from_numpy(cl).to(dev),
-                m=m, pool_p=pool_p, select_alg4=select_alg4,
-            ))
-        if layer_nb == 0:
-            reps = reps_dev.cpu().numpy()
-            reps = reps[reps >= 0].astype(np.int32)
-        t0 = _mark(phase_s, pre + "select", t0, dev)
+        with span("hnsw.build.select", phase_s, dev, key=pre + "select",
+                  layer=layer_nb):
+            g = max(1, batch_queries // smax)
+            sels = []
+            for base in range(0, k, g):
+                cl = np.full((g,), -1, np.int32)
+                take = min(g, k - base)
+                cl[:take] = np.arange(base, base + take, dtype=np.int32)
+                sels.append(_cluster_sel_step_impl(
+                    codes, scales, member_dev, nbrcl,
+                    torch.from_numpy(cl).to(dev),
+                    m=m, pool_p=pool_p, select_alg4=select_alg4,
+                ))
+            if layer_nb == 0:
+                reps = reps_dev.cpu().numpy()
+                reps = reps[reps >= 0].astype(np.int32)
 
-    qflat = torch.cat([s[0] for s in sels])
-    sel_d2 = torch.cat([s[1] for s in sels])
-    sel_ids = torch.cat([s[2] for s in sels])
-    del sels
-    pos = _sel_pos(qflat, n)
+    with span("hnsw.build.merge", phase_s, dev, key=pre + "merge",
+              layer=layer_nb):
+        qflat = torch.cat([s[0] for s in sels])
+        sel_d2 = torch.cat([s[1] for s in sels])
+        sel_ids = torch.cat([s[2] for s in sels])
+        del sels
+        pos = _sel_pos(qflat, n)
 
-    # the accept-chain union keeps its per-chunk [R, C, d] gather temps
-    # bounded through a smaller row chunk
-    rlim = 16384 if merge_heuristic else 65536
-    slots = merge_slots or 2 * cap
-    if mem is None:
-        rchunk = min(rlim, max(1024, 1 << (n - 1).bit_length()))
-        adj = _global_merge(adj, pos, qflat, sel_d2, sel_ids, codes, scales,
-                            slots=slots, rchunk=rchunk,
-                            heuristic=merge_heuristic)
-    else:
-        rchunk = min(rlim, max(1024, 1 << (nm - 1).bit_length()))
-        adj = _global_merge_rows(adj, pos, qflat, sel_d2, sel_ids,
-                                 torch.from_numpy(mem).to(dev), codes, scales,
-                                 slots=slots, rchunk=rchunk,
-                                 heuristic=merge_heuristic)
-    t0 = _mark(phase_s, pre + "merge", t0, dev)
-    adj, indeg = repair_orphans(adj, recount_indeg(adj))
-    graph.set_layer(layer_nb, adj, indeg)
-    _mark(phase_s, pre + "repair", t0, dev)
+        # the accept-chain union keeps its per-chunk [R, C, d] gather temps
+        # bounded through a smaller row chunk
+        rlim = 16384 if merge_heuristic else 65536
+        slots = merge_slots or 2 * cap
+        if mem is None:
+            rchunk = min(rlim, max(1024, 1 << (n - 1).bit_length()))
+            adj = _global_merge(adj, pos, qflat, sel_d2, sel_ids, codes,
+                                scales, slots=slots, rchunk=rchunk,
+                                heuristic=merge_heuristic)
+        else:
+            rchunk = min(rlim, max(1024, 1 << (nm - 1).bit_length()))
+            adj = _global_merge_rows(adj, pos, qflat, sel_d2, sel_ids,
+                                     torch.from_numpy(mem).to(dev), codes,
+                                     scales, slots=slots, rchunk=rchunk,
+                                     heuristic=merge_heuristic)
+    with span("hnsw.build.repair", phase_s, dev, key=pre + "repair",
+              layer=layer_nb):
+        adj, indeg = repair_orphans(adj, recount_indeg(adj))
+        graph.set_layer(layer_nb, adj, indeg)
     return reps

@@ -37,6 +37,7 @@ from ..search import (
     pack_layer_pq,
 )
 from ..store import PointStore
+from ..utils.logging import span
 
 FORMAT = "hnsw_rs_tpu.v1"
 # build_index options that concern a whole bulk build; extending a built
@@ -168,43 +169,45 @@ class HNSW:
         ``wave_sort``, ``build_seeded``, ``build_pivot_cap``,
         ``packed_build``, ``pack_lag``, ``cluster_build``,
         ``cluster_kwargs``)."""
-        self.flush()
-        x = torch.as_tensor(np.asarray(vectors, np.float32), device=self.device)
-        x = torch.atleast_2d(x)
-        self._check_dim(x.shape[-1])
-        if self.params.dim == 0:
-            self.params.dim = int(x.shape[-1])
-            self.points = PointStore.empty(self.params.dim, self.device)
-        fresh = len(self) == 0
-        t0 = time.perf_counter()
-        x = self._maybe_normalize(x)
-        new = PointStore.from_vectors(x, self.params.ml, self.device,
-                                      seed=self._level_seed())
-        del x
-        new_ids = self.points.extend(new)
-        if not fresh:
-            self._extend_built(new_ids, verbose=verbose, **build_kwargs)
+        with span("hnsw.insert_bulk", device=self.device):
+            self.flush()
+            x = torch.as_tensor(np.asarray(vectors, np.float32),
+                                device=self.device)
+            x = torch.atleast_2d(x)
+            self._check_dim(x.shape[-1])
+            if self.params.dim == 0:
+                self.params.dim = int(x.shape[-1])
+                self.points = PointStore.empty(self.params.dim, self.device)
+            fresh = len(self) == 0
+            phases = {} if fresh else None
+            with span("hnsw.build.quantize", phases, self.device):
+                x = self._maybe_normalize(x)
+                new = PointStore.from_vectors(x, self.params.ml, self.device,
+                                              seed=self._level_seed())
+                del x
+                new_ids = self.points.extend(new)
+            if not fresh:
+                self._extend_built(new_ids, verbose=verbose, **build_kwargs)
+                return self
+            self.build_phase_s = phases
+            self.graph, ep, packed0, creps = build_index(
+                self.points, self.params, verbose=verbose,
+                phase_s=self.build_phase_s, **build_kwargs)
+            self.params.ep = ep
+            self._cluster_pivots = creps
+            self._packed0, self._packed_n = None, -1
+            if packed0 is not None:
+                # a packed build kept the serving layout as it went
+                self._packed0, self._packed_n = packed0, len(self.points)
+            if creps is not None and len(self):
+                # cluster-built graphs clear the recall gate pivot-seeded,
+                # not through hierarchical descent: serve seeded from the
+                # start
+                t0 = time.perf_counter()
+                self.finalize(pivots=max(1024, int(1.5 * creps.size)),
+                              packed=False)
+                self.build_phase_s["auto_finalize"] = time.perf_counter() - t0
             return self
-        self.build_phase_s = {}
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.build_phase_s["quantize"] = time.perf_counter() - t0
-        self.graph, ep, packed0, creps = build_index(
-            self.points, self.params, verbose=verbose,
-            phase_s=self.build_phase_s, **build_kwargs)
-        self.params.ep = ep
-        self._cluster_pivots = creps
-        self._packed0, self._packed_n = None, -1
-        if packed0 is not None:
-            # a packed build kept the serving layout as it went
-            self._packed0, self._packed_n = packed0, len(self.points)
-        if creps is not None and len(self):
-            # cluster-built graphs clear the recall gate pivot-seeded, not
-            # through hierarchical descent: serve seeded from the start
-            t0 = time.perf_counter()
-            self.finalize(pivots=max(1024, int(1.5 * creps.size)), packed=False)
-            self.build_phase_s["auto_finalize"] = time.perf_counter() - t0
-        return self
 
     def insert_vec(self, vector) -> int:
         """Incremental single-vector insert (``insert_vec``,
@@ -396,94 +399,95 @@ class HNSW:
         first; ``pq_bits=4`` keeps ``pq_m`` bytes per point but splits
         them into ``2 * pq_m`` subspaces with 16-entry codebooks,
         nibble-packed."""
-        if pivot_fill not in ("cover", "stride"):
-            raise ValueError(f"unknown pivot_fill {pivot_fill!r}")
-        self.flush()
-        n = len(self)
-        if pq_m > 0:
-            if pivots <= 0:
-                raise ValueError("pq_m > 0 requires pivots > 0 "
-                                 "(PQ serving seeds from the pivot table)")
-            if pq_bits not in (4, 8):
-                raise ValueError(f"pq_bits must be 4 or 8, got {pq_bits}")
-            m_sub = pq_m if pq_bits == 8 else 2 * pq_m
-            if self.params.dim % m_sub != 0:
-                raise ValueError(f"{m_sub} subspaces (pq_m {pq_m} at {pq_bits} "
-                                 f"bits) must divide dim {self.params.dim}")
-            packed = False  # the PQ pack replaces the exact-code pack
-            if n > 0:
-                self._train_pq(pq_m, pq_iters, pq_opq, pq_bits)
-            self.pq_rerank = int(pq_rerank)
-        else:
-            self._pq, self._pq_n = None, -1
-        if not packed:
-            self._packed0, self._packed_n = None, -1
-        elif len(self.graph) > 0 and self._packed_n != n:
-            # a packed build already left fresh rows; pack after a load, a
-            # plain build or inserts
-            self._packed0 = pack_layer(self.graph.get_layer(0),
-                                       self.points.codes, self.points.scales)
-            self._packed_n = n
-        self.serve_expand = int(expand)
-        if pivots <= 0 or n == 0:
-            if pivots == 0:
-                self._pivots, self._pivots_n = None, -1
-                self._pivot_shortlist = self._pivot_sl_pack = None
-            return self
-        budget = min(pivots, n)
-        cap = budget if pivot_fill == "stride" else max(
-            1, budget - int(round(budget * float(pivot_cover))))
-        levels = self.points.levels[:n]
-        # smallest level whose member count fits the cap, then an even
-        # deterministic subsample if even level 1 is too big
-        ids = None
-        for lv in range(int(levels.max()), 0, -1):
-            cand = np.flatnonzero(levels >= lv)
-            if cand.size >= min(cap, n) or lv == 1:
-                ids = cand
-                break
-        if ids is None or ids.size == 0:  # single-layer graph
-            ids = np.arange(n)
-        if ids.size > cap:
-            ids = ids[np.unique(
-                np.linspace(0, ids.size - 1, cap).round().astype(np.int64))]
-        if self._cluster_pivots is not None:
-            # cluster-built graphs: the per-cluster representatives cover
-            # every region by construction; seed from them first, topped up
-            # with the level picks to the cap
-            reps = np.asarray(self._cluster_pivots, np.int64)
-            if reps.size > cap:
-                reps = reps[np.unique(
-                    np.linspace(0, reps.size - 1, cap).round().astype(np.int64))]
-            seen = set(reps.tolist())
-            extra = [i for i in np.asarray(ids).tolist()
-                     if i not in seen][: max(0, cap - reps.size)]
-            ids = np.concatenate([reps, np.asarray(extra, np.int64)])
-        if ids.size < budget:
-            need = budget - ids.size
-            if pivot_fill == "cover":
-                from ..ops.cover import kcenter_fill
-
-                x = dequantize(self.points.codes[:n], self.points.scales[:n])
-                fill = kcenter_fill(x, np.asarray(ids, np.int64), need)
-                del x
+        with span("hnsw.finalize", device=self.device):
+            if pivot_fill not in ("cover", "stride"):
+                raise ValueError(f"unknown pivot_fill {pivot_fill!r}")
+            self.flush()
+            n = len(self)
+            if pq_m > 0:
+                if pivots <= 0:
+                    raise ValueError("pq_m > 0 requires pivots > 0 "
+                                     "(PQ serving seeds from the pivot table)")
+                if pq_bits not in (4, 8):
+                    raise ValueError(f"pq_bits must be 4 or 8, got {pq_bits}")
+                m_sub = pq_m if pq_bits == 8 else 2 * pq_m
+                if self.params.dim % m_sub != 0:
+                    raise ValueError(f"{m_sub} subspaces (pq_m {pq_m} at {pq_bits} "
+                                     f"bits) must divide dim {self.params.dim}")
+                packed = False  # the PQ pack replaces the exact-code pack
+                if n > 0:
+                    self._train_pq(pq_m, pq_iters, pq_opq, pq_bits)
+                self.pq_rerank = int(pq_rerank)
             else:
-                stride = np.linspace(0, n - 1, budget).round().astype(np.int64)
-                seen2 = set(np.asarray(ids).tolist())
-                fill = np.asarray(
-                    [i for i in stride.tolist() if i not in seen2][:need],
-                    np.int64)
-            ids = np.concatenate([np.asarray(ids, np.int64), fill])
-        self._set_pivots(np.asarray(ids))
-        self._pivot_shortlist = self._pivot_sl_pack = None
-        if pivot_shortlist > 0:
-            codes, scales = self.points.codes[:n], self.points.scales[:n]
-            self._pivot_shortlist = _build_shortlist(
-                self._pivots[1], codes, scales, int(pivot_shortlist))
-            if packed:
-                self._pivot_sl_pack = pack_layer(self._pivot_shortlist, codes,
-                                                 scales)
-        return self
+                self._pq, self._pq_n = None, -1
+            if not packed:
+                self._packed0, self._packed_n = None, -1
+            elif len(self.graph) > 0 and self._packed_n != n:
+                # a packed build already left fresh rows; pack after a load, a
+                # plain build or inserts
+                self._packed0 = pack_layer(self.graph.get_layer(0),
+                                           self.points.codes, self.points.scales)
+                self._packed_n = n
+            self.serve_expand = int(expand)
+            if pivots <= 0 or n == 0:
+                if pivots == 0:
+                    self._pivots, self._pivots_n = None, -1
+                    self._pivot_shortlist = self._pivot_sl_pack = None
+                return self
+            budget = min(pivots, n)
+            cap = budget if pivot_fill == "stride" else max(
+                1, budget - int(round(budget * float(pivot_cover))))
+            levels = self.points.levels[:n]
+            # smallest level whose member count fits the cap, then an even
+            # deterministic subsample if even level 1 is too big
+            ids = None
+            for lv in range(int(levels.max()), 0, -1):
+                cand = np.flatnonzero(levels >= lv)
+                if cand.size >= min(cap, n) or lv == 1:
+                    ids = cand
+                    break
+            if ids is None or ids.size == 0:  # single-layer graph
+                ids = np.arange(n)
+            if ids.size > cap:
+                ids = ids[np.unique(
+                    np.linspace(0, ids.size - 1, cap).round().astype(np.int64))]
+            if self._cluster_pivots is not None:
+                # cluster-built graphs: the per-cluster representatives cover
+                # every region by construction; seed from them first, topped up
+                # with the level picks to the cap
+                reps = np.asarray(self._cluster_pivots, np.int64)
+                if reps.size > cap:
+                    reps = reps[np.unique(
+                        np.linspace(0, reps.size - 1, cap).round().astype(np.int64))]
+                seen = set(reps.tolist())
+                extra = [i for i in np.asarray(ids).tolist()
+                         if i not in seen][: max(0, cap - reps.size)]
+                ids = np.concatenate([reps, np.asarray(extra, np.int64)])
+            if ids.size < budget:
+                need = budget - ids.size
+                if pivot_fill == "cover":
+                    from ..ops.cover import kcenter_fill
+
+                    x = dequantize(self.points.codes[:n], self.points.scales[:n])
+                    fill = kcenter_fill(x, np.asarray(ids, np.int64), need)
+                    del x
+                else:
+                    stride = np.linspace(0, n - 1, budget).round().astype(np.int64)
+                    seen2 = set(np.asarray(ids).tolist())
+                    fill = np.asarray(
+                        [i for i in stride.tolist() if i not in seen2][:need],
+                        np.int64)
+                ids = np.concatenate([np.asarray(ids, np.int64), fill])
+            self._set_pivots(np.asarray(ids))
+            self._pivot_shortlist = self._pivot_sl_pack = None
+            if pivot_shortlist > 0:
+                codes, scales = self.points.codes[:n], self.points.scales[:n]
+                self._pivot_shortlist = _build_shortlist(
+                    self._pivots[1], codes, scales, int(pivot_shortlist))
+                if packed:
+                    self._pivot_sl_pack = pack_layer(self._pivot_shortlist, codes,
+                                                     scales)
+            return self
 
     def _set_pivots(self, ids: np.ndarray) -> None:
         idt = torch.tensor(np.asarray(ids, np.int32), device=self.device)
@@ -539,14 +543,25 @@ class HNSW:
         through the branch :meth:`serving_route` names. Queries are
         quantized then dequantized (the index lives in quantized space,
         ``template.rs:313``)."""
-        route = self.serving_route()
-        x = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
-        x = torch.atleast_2d(x)
-        self._check_dim(x.shape[-1])
+        with span("hnsw.ann_batch", device=self.device):
+            route = self.serving_route()
+            with span("hnsw.search.quantize", device=self.device):
+                x = torch.as_tensor(np.asarray(queries, np.float32),
+                                    device=self.device)
+                x = torch.atleast_2d(x)
+                self._check_dim(x.shape[-1])
+                q = dequantize(*quantize(self._maybe_normalize(x)))
+            d, i = self._search(route, q, n, ef, max_iters)
+            with span("hnsw.search.result", device=self.device):
+                return d.cpu().numpy(), i.cpu().numpy()
+
+    def _search(self, route: str, q: torch.Tensor, n: int, ef: int,
+                max_iters: int | None):
+        """:meth:`ann_batch`'s branch ``route`` over quantized queries:
+        (distances [B, n], ids [B, n]) on the device."""
         ef = max(ef, n)
         if max_iters is None:
             max_iters = 2 * ef + 16
-        q = dequantize(*quantize(self._maybe_normalize(x)))
         e = self.serve_expand
         if route not in ("packed", "plain"):
             piv_ids, piv_vecs = self._pivots
@@ -555,36 +570,34 @@ class HNSW:
             # default: exact-rescore the whole beam, one [B, ef] gather at
             # the end of the query; ADC ordering noise inside a
             # neighborhood is the PQ mode's recall wall
-            d, i = ann_search_pq(
+            return ann_search_pq(
                 packed_pq, cb, pq_codes, piv_ids, piv_vecs, self.points.codes,
                 self.points.scales, q, ef, n, max_iters,
                 self.pq_rerank or max(4 * n, ef), e, rot)
-        elif route == "probe_packed":
-            d, i = ann_search_seeded_probe_packed(
+        if route == "probe_packed":
+            return ann_search_seeded_probe_packed(
                 self._packed0, piv_ids, piv_vecs, self._pivot_sl_pack,
                 self._pivot_shortlist.shape[1], self.params.dim, q, ef, n,
                 max_iters, self.serve_probes, e)
-        elif route == "probe":
-            d, i = ann_search_seeded_probe(
+        if route == "probe":
+            return ann_search_seeded_probe(
                 self._packed0, piv_ids, piv_vecs, self._pivot_shortlist,
                 self.points.codes, self.points.scales, q, ef, n, max_iters,
                 self.serve_probes, e)
-        elif route == "seeded":
-            d, i = ann_search_seeded(self._packed0, piv_ids, piv_vecs, q, ef,
+        if route == "seeded":
+            return ann_search_seeded(self._packed0, piv_ids, piv_vecs, q, ef,
                                      n, max_iters, e)
-        elif route == "packed":
-            d, i = ann_search_packed(
+        if route == "packed":
+            return ann_search_packed(
                 self.graph.adjs[1:], self._packed0, self.points.codes,
                 self.points.scales, q, self.params.ep, ef, n, max_iters, e)
-        elif route == "seeded_plain":
-            d, i = ann_search_seeded_plain(
+        if route == "seeded_plain":
+            return ann_search_seeded_plain(
                 self.graph.get_layer(0), self._serving_table(),
                 self.points.scales, piv_ids, piv_vecs, q, ef, n, max_iters, e)
-        else:
-            d, i = ann_search(self.graph.adjs, self._serving_table(),
-                              self.points.scales, q, self.params.ep, ef, n,
-                              max_iters)
-        return d.cpu().numpy(), i.cpu().numpy()
+        return ann_search(self.graph.adjs, self._serving_table(),
+                          self.points.scales, q, self.params.ep, ef, n,
+                          max_iters)
 
     # -- introspection -----------------------------------------------------
 

@@ -35,18 +35,17 @@ from __future__ import annotations
 
 import json
 import os
-import time
 
 import numpy as np
 import torch
 
-from ..build_cluster import _mark
 from ..build_cluster import kmeans as _kmeans_chunked
 from ..errors import DimensionMismatch
 from ..ops.distance import l2sq, normalize
 from ..ops.quant import dequantize, quantize
 from ..ops.topk import INF, PAD_ID, sort_dist_id, topk_dist_id, topk_lowest
 from ..search import _query_chunk
+from ..utils.logging import span
 
 FORMAT = "hnsw_rs_tpu.ivf.v1"
 # Dense Lloyd holds an [N, C] f32 distance block per step (here in row
@@ -266,25 +265,24 @@ class IVFFlatIndex:
         """Train the coarse quantizer and add all vectors (bulk build).
         Quantization runs on the device; the codes come back to the host
         once, for the repack."""
-        self.build_phase_s = {}
-        t0 = time.perf_counter()
-        x = self._prep(vectors)
-        n = x.shape[0]
-        if self.n_lists <= 0:
-            self.n_lists = max(1, int(np.sqrt(n)))
-        c = min(self.n_lists, n)
-        self.n_lists = c
-        self.codes, self.scales = quantize(x)
-        del x
-        self._n = n
-        t0 = _mark(self.build_phase_s, "quantize", t0, self.device)
-        cent, assign = _coarse_kmeans(self.codes, self.scales, c,
-                                      self.kmeans_iters, self.seed)
-        self.centroids = cent
-        self._assign = assign.cpu().numpy()
-        t0 = _mark(self.build_phase_s, "kmeans", t0, self.device)
-        self._pack()
-        _mark(self.build_phase_s, "pack", t0, self.device)
+        self.build_phase_s = phases = {}
+        with span("ivf.build.quantize", phases, self.device):
+            x = self._prep(vectors)
+            n = x.shape[0]
+            if self.n_lists <= 0:
+                self.n_lists = max(1, int(np.sqrt(n)))
+            c = min(self.n_lists, n)
+            self.n_lists = c
+            self.codes, self.scales = quantize(x)
+            del x
+            self._n = n
+        with span("ivf.build.kmeans", phases, self.device):
+            cent, assign = _coarse_kmeans(self.codes, self.scales, c,
+                                          self.kmeans_iters, self.seed)
+            self.centroids = cent
+            self._assign = assign.cpu().numpy()
+        with span("ivf.build.pack", phases, self.device):
+            self._pack()
         return np.arange(n, dtype=np.int32)
 
     def add(self, vectors) -> np.ndarray:

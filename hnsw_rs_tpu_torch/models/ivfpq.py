@@ -24,18 +24,17 @@ from __future__ import annotations
 
 import json
 import os
-import time
 
 import numpy as np
 import torch
 
-from ..build_cluster import _mark
 from ..errors import DimensionMismatch
 from ..ops.distance import l2sq, normalize
 from ..ops.pq import opq_train, pq_encode, pq_train
 from ..ops.quant import dequantize, quantize
 from ..ops.topk import INF, PAD_ID, sort_dist_id, topk_dist_id
 from ..search import _query_chunk
+from ..utils.logging import span
 from .ivf import _assign, _coarse_kmeans, _list_layout, _probe_lists, _tail_slots
 
 FORMAT = "hnsw_rs_tpu.ivfpq.v1"
@@ -168,56 +167,56 @@ class IVFPQIndex:
     # -- construction --------------------------------------------------
 
     def train_add(self, vectors) -> np.ndarray:
-        self.build_phase_s = {}
-        t0 = time.perf_counter()
-        x = self._prep(vectors)
-        n = x.shape[0]
-        if self.n_lists <= 0:
-            self.n_lists = max(1, int(np.sqrt(n)))
-        c = min(self.n_lists, n)
-        self.n_lists = c
-        codes, scales = quantize(x)
-        self._n = n
-        x = dequantize(codes, scales)
-        rng = np.random.default_rng(self.seed)
-        cent, assign = _coarse_kmeans(codes, scales, c, self.kmeans_iters,
-                                      self.seed)
-        self.centroids = cent
-        self._assign = assign.cpu().numpy()
-        t0 = _mark(self.build_phase_s, "coarse", t0, self.device)
-        res_flat = x - cent[assign.long()]  # [n, d] residuals
-        del x
-        # past _PQ_TRAIN_MAX rows the codebooks train on an evenly strided
-        # subsample: Lloyd's step holds [m_pq, Ntrain, 256] temps, and 64k
-        # samples train codebooks to the same distortion
-        ts = min(n, _PQ_TRAIN_MAX)
-        ds_sub = self.dim // self.m_pq
-        if self.opq:
-            self.rot, self.codebooks = opq_train(
-                res_flat, self.m_pq, pq_iters=self.pq_iters,
-                opq_iters=self.opq_iters, seed=self.seed, train_n=ts)
-            res_flat = res_flat @ self.rot
-        else:
-            self.rot = torch.eye(self.dim, dtype=torch.float32,
-                                 device=self.device)
-            res_train = res_flat
-            if ts < n:
-                pick = np.linspace(0, n - 1, ts).round().astype(np.int64)
-                res_train = res_flat[torch.from_numpy(pick).to(self.device)]
-            pq_init = rng.choice(ts, size=min(256, ts), replace=False)
-            if ts < 256:  # tiny collections: repeat row 0 to fill the codebook
-                pq_init = np.concatenate([pq_init, np.zeros(256 - ts, np.int64)])
-            self.codebooks = pq_train(
-                res_train.reshape(ts, self.m_pq, ds_sub),
-                torch.from_numpy(pq_init).to(self.device), self.pq_iters)
-            del res_train
-        t0 = _mark(self.build_phase_s, "pq_train", t0, self.device)
-        pq_codes = self._encode(res_flat)
-        del res_flat
-        t0 = _mark(self.build_phase_s, "encode", t0, self.device)
-        self._pack(pq_codes)
-        self._store_codes(codes, scales)
-        _mark(self.build_phase_s, "pack", t0, self.device)
+        self.build_phase_s = phases = {}
+        with span("ivfpq.build.coarse", phases, self.device):
+            x = self._prep(vectors)
+            n = x.shape[0]
+            if self.n_lists <= 0:
+                self.n_lists = max(1, int(np.sqrt(n)))
+            c = min(self.n_lists, n)
+            self.n_lists = c
+            codes, scales = quantize(x)
+            self._n = n
+            x = dequantize(codes, scales)
+            rng = np.random.default_rng(self.seed)
+            cent, assign = _coarse_kmeans(codes, scales, c, self.kmeans_iters,
+                                          self.seed)
+            self.centroids = cent
+            self._assign = assign.cpu().numpy()
+        with span("ivfpq.build.pq_train", phases, self.device):
+            res_flat = x - cent[assign.long()]  # [n, d] residuals
+            del x
+            # past _PQ_TRAIN_MAX rows the codebooks train on an evenly
+            # strided subsample: Lloyd's step holds [m_pq, Ntrain, 256]
+            # temps, and 64k samples train codebooks to the same distortion
+            ts = min(n, _PQ_TRAIN_MAX)
+            ds_sub = self.dim // self.m_pq
+            if self.opq:
+                self.rot, self.codebooks = opq_train(
+                    res_flat, self.m_pq, pq_iters=self.pq_iters,
+                    opq_iters=self.opq_iters, seed=self.seed, train_n=ts)
+                res_flat = res_flat @ self.rot
+            else:
+                self.rot = torch.eye(self.dim, dtype=torch.float32,
+                                     device=self.device)
+                res_train = res_flat
+                if ts < n:
+                    pick = np.linspace(0, n - 1, ts).round().astype(np.int64)
+                    res_train = res_flat[torch.from_numpy(pick).to(self.device)]
+                pq_init = rng.choice(ts, size=min(256, ts), replace=False)
+                if ts < 256:  # tiny collections: repeat row 0 to fill the codebook
+                    pq_init = np.concatenate([pq_init,
+                                              np.zeros(256 - ts, np.int64)])
+                self.codebooks = pq_train(
+                    res_train.reshape(ts, self.m_pq, ds_sub),
+                    torch.from_numpy(pq_init).to(self.device), self.pq_iters)
+                del res_train
+        with span("ivfpq.build.encode", phases, self.device):
+            pq_codes = self._encode(res_flat)
+            del res_flat
+        with span("ivfpq.build.pack", phases, self.device):
+            self._pack(pq_codes)
+            self._store_codes(codes, scales)
         return np.arange(n, dtype=np.int32)
 
     def _encode(self, res_flat: torch.Tensor) -> np.ndarray:

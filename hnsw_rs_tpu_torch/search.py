@@ -39,6 +39,7 @@ from .ops.topk import (
     sort_dist_id,
     topk_lowest,
 )
+from .utils.logging import count, recording, span
 
 
 def _gather_vecs(codes: torch.Tensor, scales: torch.Tensor,
@@ -157,13 +158,15 @@ def _beam_pick(beam_ids: torch.Tensor, beam_exp: torch.Tensor, e: int,
 
 def _beam_merge(beam_d2, beam_ids, beam_exp, ring, q, active, nbrs, pay,
                 e: int, cap: int, forbid: torch.Tensor | None = None,
-                scored: bool = False):
+                scored: bool = False, tally: torch.Tensor | None = None):
     """Merge the popped entries' neighbor rows into the beams: ``nbrs``
     [B*E, cap] (or [B, cap] at e=1) with their payload ``pay`` (vectors
     f32[..., cap, d], or d2 f32[..., cap] when ``scored``), ``active`` as
     :func:`_beam_pick` returned it. Known ids (in the beam or the ring)
     and invalid lanes drop out; the rest enter by (d2, id) order. Returns
-    (beam_d2, beam_ids, beam_exp, ring)."""
+    (beam_d2, beam_ids, beam_exp, ring). ``tally`` (i64[1 + 2*E*cap]),
+    when given, gains the live lanes, then per row slot the fetched
+    (valid) and the new neighbors, summed over the batch on the device."""
     b, ef = beam_ids.shape
     ring_size = ring.shape[1]
     if e == 1:
@@ -179,6 +182,9 @@ def _beam_merge(beam_d2, beam_ids, beam_exp, ring, q, active, nbrs, pay,
     known = (nbrs_safe[:, :, None] == beam_ids[:, None, :]).any(dim=-1) | (
         nbrs_safe[:, :, None] == ring[:, None, :]).any(dim=-1)
     new = valid & ~known
+    if tally is not None:
+        live = active if e == 1 else active[:, 0]
+        tally += torch.cat([live[:, None], valid, new], dim=1).sum(dim=0)
     ring = torch.cat(
         [torch.where(new, nbrs, PAD_ID), ring[:, : ring_size - e * cap]], dim=1)
 
@@ -229,20 +235,38 @@ def _beam_loop(fetch, n: int, cap: int, q: torch.Tensor,
     reference's exact pop-one semantics (``searcher.rs:35-44``); E>1 is a
     lockstep serving mode: the per-iteration fixed costs (sorts, launches,
     the host read) amortize over E pops, the discovered set is a superset
-    of some E=1 prefix, and termination is unchanged."""
+    of some E=1 prefix, and termination is unchanged.
+
+    Counts ``beam.iterations``; while a profiler records and the batch
+    holds more than one query, also ``beam.live_lanes`` (queries not yet
+    converged, summed over iterations), ``beam.rows_fetched`` (valid
+    neighbor entries of the expanded rows) and ``beam.rows_new`` (those
+    neither in the beam nor the ring), tallied on the device."""
     e = max(1, min(int(expand_e), ef))
     if ring_size <= 0:
         ring_size = max(2 * cap, 64, e * cap)
-    beam_d2, beam_ids, beam_exp = init_beam(entry_d2, entry_ids, ef)
-    ring = _init_ring(entry_ids, ring_size)
-    for _ in range(max_iters):
-        if bool(beam_exp.all()):
-            break
-        cand, active, beam_exp, _ = _beam_pick(beam_ids, beam_exp, e)
-        nbrs, pay = fetch(cand.clamp(0, n - 1).reshape(-1))
-        beam_d2, beam_ids, beam_exp, ring = _beam_merge(
-            beam_d2, beam_ids, beam_exp, ring, q, active, nbrs, pay, e, cap,
-            forbid, scored)
+    b = entry_ids.shape[0]
+    with span("hnsw.search.beam", device=entry_ids.device, batch=b):
+        beam_d2, beam_ids, beam_exp = init_beam(entry_d2, entry_ids, ef)
+        ring = _init_ring(entry_ids, ring_size)
+        tally = (torch.zeros(1 + 2 * e * cap, dtype=torch.int64,
+                             device=entry_ids.device)
+                 if b > 1 and recording() else None)
+        iters = 0
+        for _ in range(max_iters):
+            if bool(beam_exp.all()):
+                break
+            cand, active, beam_exp, _ = _beam_pick(beam_ids, beam_exp, e)
+            nbrs, pay = fetch(cand.clamp(0, n - 1).reshape(-1))
+            beam_d2, beam_ids, beam_exp, ring = _beam_merge(
+                beam_d2, beam_ids, beam_exp, ring, q, active, nbrs, pay, e,
+                cap, forbid, scored, tally)
+            iters += 1
+        count("beam.iterations", iters)
+        if tally is not None:
+            count("beam.live_lanes", tally[0])
+            count("beam.rows_fetched", tally[1:1 + e * cap].sum())
+            count("beam.rows_new", tally[1 + e * cap:].sum())
     return beam_d2, beam_ids
 
 
@@ -446,7 +470,15 @@ def ann_search_pq(packed0: torch.Tensor, codebooks: torch.Tensor,
                                 dequantize(codes[c], scales[c]))
     d2 = torch.where(cand == PAD_ID, INF, d2)
     sd, si = sort_dist_id(d2, cand)
-    return torch.sqrt(sd[:, :k]), si[:, :k]
+    return _top_k(sd, si, k)
+
+
+def _top_k(d2: torch.Tensor, ids: torch.Tensor, k: int):
+    """(sqrt(d2) [B, k], ids [B, k]) of (d2, id)-sorted rows: the answer
+    on the device, the first part of the result stage (``ann_batch``'s
+    host reads are the rest)."""
+    with span("hnsw.search.result", device=d2.device):
+        return torch.sqrt(d2[:, :k]), ids[:, :k]
 
 
 def _query_chunk(b: int, bytes_per_query: int, device) -> int:
@@ -471,15 +503,16 @@ def _pivot_seeds_pos(pivot_ids: torch.Tensor, pivot_vecs: torch.Tensor,
     top-ef (the JAX package's oversampled ``approx_max_k`` refined by
     ``top_k`` is exact on its CPU backend; this is the same selection).
     Returns (d2, ids, positions into the pivot table)."""
-    d2p = ((q * q).sum(dim=1, keepdim=True) - 2.0 * (q @ pivot_vecs.T)
-           + (pivot_vecs * pivot_vecs).sum(dim=1)[None, :])
-    d2p = torch.where(pivot_ids[None, :] >= 0, d2p, INF)
-    s = min(ef, pivot_ids.shape[0])
-    vals, pos = topk_lowest(d2p, s)
-    e_ids = pivot_ids[pos]
-    real = e_ids >= 0
-    e_d2 = torch.where(real, torch.clamp_min(vals, 0.0), INF)
-    return e_d2, torch.where(real, e_ids, PAD_ID), pos
+    with span("hnsw.search.seeds", device=q.device):
+        d2p = ((q * q).sum(dim=1, keepdim=True) - 2.0 * (q @ pivot_vecs.T)
+               + (pivot_vecs * pivot_vecs).sum(dim=1)[None, :])
+        d2p = torch.where(pivot_ids[None, :] >= 0, d2p, INF)
+        s = min(ef, pivot_ids.shape[0])
+        vals, pos = topk_lowest(d2p, s)
+        e_ids = pivot_ids[pos]
+        real = e_ids >= 0
+        e_d2 = torch.where(real, torch.clamp_min(vals, 0.0), INF)
+        return e_d2, torch.where(real, e_ids, PAD_ID), pos
 
 
 def ann_search_seeded(packed0: torch.Tensor, pivot_ids: torch.Tensor,
@@ -493,7 +526,7 @@ def ann_search_seeded(packed0: torch.Tensor, pivot_ids: torch.Tensor,
     e_d2, e_ids, _ = _pivot_seeds_pos(pivot_ids, pivot_vecs, q, ef)
     beam_d2, beam_ids = search_layer_packed(packed0, q, e_d2, e_ids, ef,
                                             max_iters, expand_e=expand_e)
-    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+    return _top_k(beam_d2, beam_ids, k)
 
 
 def _top_ef_dedup_oversampled(md2: torch.Tensor, mids: torch.Tensor, ef: int):
@@ -526,15 +559,16 @@ def _probe_seeds(score_probe, pivot_ids, pivot_vecs, q, ef: int, probes: int,
     for lo in range(0, b, step):
         qc = q[lo:lo + step]
         e_d2, e_ids, pos = _pivot_seeds_pos(pivot_ids, pivot_vecs, qc, ef)
-        d2_parts, id_parts = [e_d2], [e_ids]
-        for i in range(min(probes, pos.shape[1])):
-            d2_i, ids_i = score_probe(qc, pos[:, i])
-            d2_parts.append(torch.where(ids_i >= 0, d2_i, INF))
-            id_parts.append(torch.where(ids_i >= 0, ids_i, PAD_ID))
-        md2, mids = _top_ef_dedup_oversampled(
-            torch.cat(d2_parts, dim=1), torch.cat(id_parts, dim=1), ef)
-        out_d2.append(md2[:, :ef])
-        out_ids.append(mids[:, :ef])
+        with span("hnsw.search.probe", device=q.device):
+            d2_parts, id_parts = [e_d2], [e_ids]
+            for i in range(min(probes, pos.shape[1])):
+                d2_i, ids_i = score_probe(qc, pos[:, i])
+                d2_parts.append(torch.where(ids_i >= 0, d2_i, INF))
+                id_parts.append(torch.where(ids_i >= 0, ids_i, PAD_ID))
+            md2, mids = _top_ef_dedup_oversampled(
+                torch.cat(d2_parts, dim=1), torch.cat(id_parts, dim=1), ef)
+            out_d2.append(md2[:, :ef])
+            out_ids.append(mids[:, :ef])
     return torch.cat(out_d2), torch.cat(out_ids)
 
 
@@ -604,7 +638,7 @@ def ann_search_seeded_probe(packed0: torch.Tensor, pivot_ids: torch.Tensor,
                                packed=False))
     beam_d2, beam_ids = search_layer_packed(packed0, q, md2, mids, ef,
                                             max_iters, expand_e=expand_e)
-    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+    return _top_k(beam_d2, beam_ids, k)
 
 
 def ann_search_seeded_probe_packed(packed0: torch.Tensor,
@@ -626,7 +660,7 @@ def ann_search_seeded_probe_packed(packed0: torch.Tensor,
                                packed=True))
     beam_d2, beam_ids = search_layer_packed(packed0, q, md2, mids, ef,
                                             max_iters, expand_e=expand_e)
-    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+    return _top_k(beam_d2, beam_ids, k)
 
 
 def ann_search_seeded_plain(adj0: torch.Tensor, codes: torch.Tensor,
@@ -640,7 +674,7 @@ def ann_search_seeded_plain(adj0: torch.Tensor, codes: torch.Tensor,
     e_d2, e_ids, _ = _pivot_seeds_pos(pivot_ids, pivot_vecs, q, ef)
     beam_d2, beam_ids = search_layer(adj0, codes, scales, q, e_d2, e_ids, ef,
                                      max_iters, expand_e=expand_e)
-    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+    return _top_k(beam_d2, beam_ids, k)
 
 
 def seed_entry(codes: torch.Tensor, scales: torch.Tensor, q: torch.Tensor,
@@ -674,7 +708,7 @@ def ann_search(adjs, codes: torch.Tensor, scales: torch.Tensor,
     e_d2, e_ids = _descend(adjs[1:], codes, scales, q, ep)
     beam_d2, beam_ids = search_layer(adjs[0], codes, scales, q, e_d2, e_ids,
                                      ef, max_iters)
-    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+    return _top_k(beam_d2, beam_ids, k)
 
 
 def ann_search_packed(adjs_upper, packed0: torch.Tensor, codes: torch.Tensor,
@@ -687,4 +721,4 @@ def ann_search_packed(adjs_upper, packed0: torch.Tensor, codes: torch.Tensor,
     e_d2, e_ids = _descend(adjs_upper, codes, scales, q, ep)
     beam_d2, beam_ids = search_layer_packed(packed0, q, e_d2, e_ids, ef,
                                             max_iters, expand_e=expand_e)
-    return torch.sqrt(beam_d2[:, :k]), beam_ids[:, :k]
+    return _top_k(beam_d2, beam_ids, k)

@@ -3,7 +3,8 @@ CLI arguments and the reference-format codec (``serializer``)."""
 
 from .data import load_bf_data, save_bf_data, split
 from .glove import brute_force_nns, load_glove_array
-from .logging import get_logger, profile_trace, timed
+from .logging import (count, counters, get_logger, profile_trace, reset_spans,
+                      span, timed, traced_spans)
 from .progress import ProgressBar, progress_iter
 from .rand import gen_rand_vecs
 
@@ -19,4 +20,9 @@ __all__ = [
     "get_logger",
     "profile_trace",
     "timed",
+    "span",
+    "count",
+    "counters",
+    "traced_spans",
+    "reset_spans",
 ]
