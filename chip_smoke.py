@@ -127,7 +127,13 @@ scale bit for bit, the two sums within 1e-6.
 
 After the two paths, K2 again at the main path's shape (B=4,096,
 N=1,000,064) against its plain version, with ``flat_topk_fused`` ids
-held equal to the plain route's there too. It prints the kernels' JSON
+held equal to the plain route's there too; then K3 (``ops.beam.beam_packed``,
+the packed layer-0 beam in one launch) against ``_search_layer_packed_loop``
+on the same card inputs at the cluster path's shape (32,768 queries at the
+chosen rung), and again at the probed path's (its merged entries, its
+rung): d2 within 1e-6 * d2 + 1e-7 * (|q|^2 + |x|^2), ids equal but for
+near-ties inside that bound, and at most 1 in 4,096 rows apart (all
+counted). K3's launches are counted on every path. It prints the kernels' JSON
 line (each kernel's time, plain and library times, the least time the
 card could take for the same work, and its launches on each path), then
 as its last line
@@ -216,6 +222,13 @@ KERNEL_SRC = "hnsw_rs_tpu_torch/csrc/group_min.cu"
 KERNEL_REPLACES = "hnsw_rs_tpu/ops/pallas/l2_groupmin.py:78"
 K1_SRC = "hnsw_rs_tpu_torch/csrc/l2_kernel.cu"
 K1_REPLACES = "hnsw_rs_tpu/ops/pallas/l2_kernel.py:66"
+# K3 replaces no TPU kernel: the JAX package's lax.while_loop of the beam
+K3_SRC = "hnsw_rs_tpu_torch/csrc/beam_packed.cu"
+K3_REPLACES = "hnsw_rs_tpu/search.py:327"
+# K3: d2 within K3_RTOL * d2 + K3_ATOL * (|q|^2 + |x|^2) of the plain loop's;
+# ids equal but for near-ties inside that bound (counted); walks that a
+# near-tie sends apart (counted) at most 1 in K3_APART rows
+K3_RTOL, K3_ATOL, K3_APART = 1e-6, 1e-7, 4096
 
 
 def phase(name, t0, **kv):
@@ -349,6 +362,60 @@ def k2_check(q, codes, scales, normsq, kd, ki, pd, pi):
     return int(diff.sum()), float(err.max())
 
 
+def k3_check(packed, q, e_d2, e_ids, ef, mi, codes, scales, label):
+    """Holds the beam kernel (``ops.beam.beam_packed``) to its plain
+    version (``search._search_layer_packed_loop``) on the same card
+    inputs, times both and bounds the kernel by the row bytes of the
+    expansions it tallied. Returns a dict for the kernels line."""
+    from hnsw_rs_tpu_torch import search
+    from hnsw_rs_tpu_torch.ops import beam
+    from hnsw_rs_tpu_torch.ops.quant import dequantize
+    from hnsw_rs_tpu_torch.ops.topk import PAD_ID
+
+    b, d = q.shape
+    cap = packed.shape[1] // (d + 12)
+    ring = search._default_ring(cap, 1)
+    tally = torch.zeros(1 + 2 * cap, dtype=torch.int64, device=q.device)
+    kd2, kids, iters = beam.beam_packed(packed, q, e_d2, e_ids, ef, mi, ring,
+                                        None, tally)
+    pd2, pids = search._search_layer_packed_loop(packed, q, e_d2, e_ids, ef, mi)
+    torch.cuda.synchronize()
+    ties = apart = 0
+    err = 0.0
+    for lo in range(0, b, 1024):
+        d2, ids = pd2[lo:lo + 1024], pids[lo:lo + 1024]
+        kd, ki, qq = kd2[lo:lo + 1024], kids[lo:lo + 1024], q[lo:lo + 1024]
+        real = ids != PAD_ID
+        safe = torch.where(real, ids, 0).long()
+        x = dequantize(codes[safe], scales[safe])
+        mag = (qq * qq).sum(-1, keepdim=True) + (x * x).sum(-1)
+        tol = torch.where(real, K3_RTOL * d2.abs() + K3_ATOL * mag, 0.0)
+        both_inf = torch.isinf(d2) & torch.isinf(kd)
+        close = ((kd - d2).abs() <= tol) | both_inf
+        diff = ki != ids
+        safe_k = torch.where(ki != PAD_ID, ki, 0).long()
+        xk = dequantize(codes[safe_k], scales[safe_k])
+        tie = close & ((((qq[:, None, :] - xk) ** 2).sum(-1) - d2).abs() <= tol)
+        ties += int(diff.sum())
+        apart += int((~close | (diff & ~tie)).any(1).sum())
+        same = ~diff & real
+        if bool(same.any()):
+            err = max(err, float((kd - d2).abs()[same].max()))
+    if apart > b // K3_APART:
+        raise AssertionError(f"beam kernel ({label}): {apart} of {b} rows apart "
+                             "from the plain loop")
+    ms = cuda_ms(lambda: beam.beam_packed(packed, q, e_d2, e_ids, ef, mi, ring), 5)
+    plain_ms = cuda_ms(lambda: search._search_layer_packed_loop(
+        packed, q, e_d2, e_ids, ef, mi), 1)
+    expansions = int(tally[0])
+    nbytes = expansions * cap * (d + 12) + b * (d * 4 + e_ids.shape[1] * 8 + ef * 8)
+    return {"B": b, "d": d, "cap": cap, "ef": ef, "max_iters": mi,
+            "iterations": int(iters), "expansions": expansions,
+            "near_tie_slots": ties, "rows_apart": apart, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / MEM_BPS * 1e3}
+
+
 def sass_counts(lib):
     """Tensor-core instructions in the library's SASS (cuobjdump): int8
     warpgroup products (IGMMA), other warpgroup products (HGMMA) and warp
@@ -400,8 +467,10 @@ def limb_check(limbs, q, fast):
 def probed_path(dev, t0):
     """The probed path at ``benchmarks/bench_second_regime.py``'s
     configuration (heavy-tailed 1M x 96, not cut), then ``refine``.
-    Returns K2's launches on this path."""
+    Returns K2's launches on this path, K3's (before its own check) and
+    K3's check at this path's beam."""
     from hnsw_rs_tpu_torch import FlatIndex, HNSW, search
+    from hnsw_rs_tpu_torch.ops import beam as beam_kernel
     from hnsw_rs_tpu_torch.ops import groupmin
     from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
     from hnsw_rs_tpu_torch.ops.topk import INF, PAD_ID
@@ -518,6 +587,9 @@ def probed_path(dev, t0):
         packed0, piv_ids, piv_vecs, sl_pack, PROBE_T, D, qd, ef, K, mi, PROBES)
     if not torch.equal(st["beam"][1][:, :K], want):
         raise AssertionError("the staged probed batch differs from the route")
+    k3_launches = beam_kernel.beam_packed.launches
+    k3 = k3_check(packed0, qd, *st["entry"], ef, mi, codes, scales, "probed")
+    print("  beam kernel at the probed shape:", json.dumps(k3), flush=True)
     st.clear()
     del qd, chunks, want
     torch.cuda.empty_cache()
@@ -548,7 +620,7 @@ def probed_path(dev, t0):
           rungs=json.dumps(rungs).replace(" ", ""),
           recall_before=json.dumps([round(r, 4) for r in before]).replace(" ", ""),
           recall_after=json.dumps([round(r, 4) for r in after]).replace(" ", ""))
-    return launches
+    return launches, k3_launches, k3
 
 
 def on_card(*tensors):
@@ -1382,7 +1454,7 @@ def main():
     sys.path.insert(0, ROOT)
     from hnsw_rs_tpu_torch import FlatIndex, HNSW
     from hnsw_rs_tpu_torch.build import _insert_wave_fused_impl
-    from hnsw_rs_tpu_torch.ops import cuda_build, groupmin, l2_kernel, limbs
+    from hnsw_rs_tpu_torch.ops import beam, cuda_build, groupmin, l2_kernel, limbs
     from hnsw_rs_tpu_torch.ops.distance import point_normsq
     from hnsw_rs_tpu_torch.ops.limbs import N_LIMBS, padded_dim
     from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
@@ -1392,7 +1464,7 @@ def main():
     from hnsw_rs_tpu_torch.utils.datasets import synthetic_clustered
     t0 = phase("device", t0, kind=repr(kind))
 
-    libs = cuda_build.build("group_min", "l2_kernel", "query_limbs")
+    libs = cuda_build.build("group_min", "l2_kernel", "query_limbs", "beam_packed")
     tensor_ops = {}
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1400,7 +1472,7 @@ def main():
                 print(f"  ptxas {lib.name}:", line.strip())
         ops = tensor_ops[lib.name] = sass_counts(lib)
         print(f"  sass {lib.name}:", json.dumps(ops), flush=True)
-        if (not lib.name.startswith("query_limbs")
+        if (lib.name.startswith(("group_min", "l2_kernel"))
                 and ops["IGMMA"] + ops["IMMA"] == 0):
             raise AssertionError(f"{lib.name} has no int8 tensor-core instruction")
     t0 = phase("build", t0, libraries=",".join(lib.name for lib in libs),
@@ -1536,7 +1608,7 @@ def main():
 
     # -- main path -------------------------------------------------------------
     groupmin.group_min_d2.launches = kern.launches = 0
-    limbs.query_operands.launches = 0
+    limbs.query_operands.launches = beam.beam_packed.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     index = HNSW(M, ef_cons=EF_CONS, dim=D, device=dev)
     index.insert_bulk(ds.train, cluster_build=True, cluster_kwargs=CLUSTER_KWARGS)
@@ -1591,9 +1663,10 @@ def main():
     launches = groupmin.group_min_d2.launches
     cluster_k1 = kern.launches
     limb_launches = {"cluster": limbs.query_operands.launches}
-    if launches < 1 or limb_launches["cluster"] < 1:
-        raise AssertionError("the main path never launched group_min_d2 or "
-                             "its limb split")
+    beam_launches = {"cluster": beam.beam_packed.launches}
+    if launches < 1 or limb_launches["cluster"] < 1 or beam_launches["cluster"] < 1:
+        raise AssertionError("the main path never launched group_min_d2, "
+                             "its limb split or the beam kernel")
 
     piv_ids, piv_vecs = index._pivots
     serve_bytes = (index._packed0.numel() + piv_vecs.numel() * 4
@@ -1644,8 +1717,15 @@ def main():
                bound_ms=f"{k2_bound[0]:.4f}", bound_by=k2_bound[1],
                f32_bound_ms=f"{2 * NQ_RECALL * n_pad * D / F32_FLOPS * 1e3:.4f}")
 
+    # K3 at the main path's shape (B=32,768, the chosen rung) beside its
+    # plain version; these launches, too, come after the count was read
+    k3_main = k3_check(index._packed0, qd, e_d2, e_ids, ef, mi,
+                       index.points.codes, index.points.scales, "cluster")
+    t0 = phase("beam_kernel_main_shape", t0, **k3_main)
+
     del qg, cg, sg, ng, ki, pi, qd, e_d2, e_ids
     torch.cuda.empty_cache()
+    beam.beam_packed.launches = 0
 
     # -- E>1 and PQ serving on the cluster path's index ---------------------------
     index.finalize(expand=4, pivots=PIVOTS)
@@ -1692,33 +1772,41 @@ def main():
     t0 = phase("replicated", t0, route="packed", ef=ef, max_iters=mi,
                queries=NQ_RECALL, ids_equal=True)
     t0 = codec_path(dev, index, ef, mi, ds.test[:NQ_RECALL], t0)
+    beam_launches["replicated_codec"] = beam.beam_packed.launches
     del index, flat, cb, pq_codes, packed_pq, piv_ids, piv_vecs, rep
     torch.cuda.empty_cache()
 
     # -- the scale-out layer: 8 shards of the same 1M points on this card -------
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    beam.beam_packed.launches = 0
     t0 = sharded_path(dev, ds, truth, build_s, qps, time.perf_counter())
     sharded_launches = groupmin.group_min_d2.launches
     limb_launches["sharded"] = limbs.query_operands.launches
+    beam_launches["sharded"] = beam.beam_packed.launches
     torch.cuda.empty_cache()
 
     # -- IVF-Flat and IVF-PQ on the cluster path's points and ground truth ---------
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    beam.beam_packed.launches = 0
     t0 = ivf_flat_path(dev, ds, truth, time.perf_counter())
     t0 = ivf_pq_path(dev, ds, truth, t0)
     ivf_launches = groupmin.group_min_d2.launches
     limb_launches["ivf"] = limbs.query_operands.launches
+    beam_launches["ivf"] = beam.beam_packed.launches
     torch.cuda.empty_cache()
 
     # -- the probed path: heavy-tailed 1M, shortlist probes, refine ---------------
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
-    probe_launches = probed_path(dev, t0)
+    beam.beam_packed.launches = 0
+    probe_launches, beam_launches["probe"], k3_probe = probed_path(dev, t0)
     limb_launches["probe"] = limbs.query_operands.launches
+    if beam_launches["probe"] < 1:
+        raise AssertionError("the probed path never launched the beam kernel")
     t0 = time.perf_counter()
 
     # -- the wave path: wave build, hierarchical serving, inserts ----------------
     groupmin.group_min_d2.launches = kern.launches = 0
-    limbs.query_operands.launches = 0
+    limbs.query_operands.launches = beam.beam_packed.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     wave = HNSW(WAVE_M, ef_cons=WAVE_EF_CONS, dim=D, device=dev)
     wave.insert_bulk(ds.train[:WAVE_N], max_iters=2 * WAVE_EF_CONS + 16)
@@ -1835,9 +1923,11 @@ def main():
     wave_launches = groupmin.group_min_d2.launches
     wave_k1 = kern.launches
     limb_launches["wave"] = limbs.query_operands.launches
-    if rec2 < 0.99 or wave_launches < 1:
+    beam_launches["wave"] = beam.beam_packed.launches
+    if rec2 < 0.99 or wave_launches < 1 or beam_launches["wave"] < 1:
         raise AssertionError(f"after inserts: recall@10 {rec2:.4f} at ef="
-                             f"{wave_ef}, group_min_d2 launches {wave_launches}")
+                             f"{wave_ef}, group_min_d2 launches {wave_launches}, "
+                             f"beam kernel launches {beam_launches['wave']}")
     t0 = phase("wave_extend", t0, inserted=N_INSERT, insert_s=f"{insert_s:.3f}",
                route=route, self_recall=f"{self_rec:.4f}", ef=wave_ef,
                recall=f"{rec2:.4f}", n=len(wave), launches=wave_launches)
@@ -1846,6 +1936,7 @@ def main():
 
     # -- the wave build's options, at a smaller depth ------------------------------
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    beam.beam_packed.launches = 0
     flat = FlatIndex(D, dev)
     flat.add(ds.train[:CUT_N])
     _, truth_opt = flat.search(ds.test[:NQ_RECALL], K, fused=True)
@@ -1871,23 +1962,30 @@ def main():
         t0 = phase(f"wave_option_{name}", t0, n=CUT_N, build_s=f"{opt_s:.3f}",
                    recall_ef128=f"{rec_o:.4f}",
                    stages=json.dumps(stages).replace(" ", ""))
+    beam_launches["wave_options"] = beam.beam_packed.launches
     torch.cuda.empty_cache()
 
     # -- out-of-core serving, then the cosine metric and raw-float rows -----------
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    beam.beam_packed.launches = 0
     t0 = paged_path(dev, time.perf_counter())
     paged_launches = groupmin.group_min_d2.launches
     limb_launches["paged"] = limbs.query_operands.launches
+    beam_launches["paged"] = beam.beam_packed.launches
     torch.cuda.empty_cache()
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    beam.beam_packed.launches = 0
     t0 = cosine_path(dev, ds, t0)
     cosine_launches = groupmin.group_min_d2.launches
     limb_launches["cosine"] = limbs.query_operands.launches
+    beam_launches["cosine"] = beam.beam_packed.launches
     torch.cuda.empty_cache()
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
+    beam.beam_packed.launches = 0
     t0 = annb_path(dev, t0)
     annb_launches = groupmin.group_min_d2.launches
     limb_launches["annb"] = limbs.query_operands.launches
+    beam_launches["annb"] = beam.beam_packed.launches
     torch.cuda.empty_cache()
     if min(ivf_launches, paged_launches, cosine_launches, sharded_launches,
            annb_launches) < 1:
@@ -1953,6 +2051,15 @@ def main():
         "max_abs_err": limb_err, "ms": ms_limb, "plain_ms": ms_limb_plain,
         "bound_ms": limb_bound, "bound_by": "bytes", "library_ms": None,
         "main_path_launches": limb_launches,
+    }, {
+        # K3: the whole E=1 layer-0 walk of every query in one launch
+        "name": "beam_packed", "route": "cuda", "source": K3_SRC,
+        "replaces": K3_REPLACES, "launches": sum(beam_launches.values()),
+        "max_abs_err": max(k3_main["max_abs_err"], k3_probe["max_abs_err"]),
+        "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
+        "bound_ms": k3_main["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "main_path_launches": beam_launches,
+        "shapes": {"cluster": k3_main, "probed": k3_probe},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

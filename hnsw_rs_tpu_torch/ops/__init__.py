@@ -1,6 +1,7 @@
 """Numeric building blocks of the port (the reference's ``vectors``
 crate): quantization, distances, PQ, and (d2, id) ordering primitives;
-the CUDA kernels' wrappers live in ``groupmin`` and ``l2_kernel``."""
+the CUDA kernels' wrappers live in ``groupmin``, ``l2_kernel``, ``limbs``
+and ``beam``."""
 
 from .distance import (
     l2,

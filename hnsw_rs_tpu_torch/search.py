@@ -19,15 +19,18 @@ rerank at the end) and the shortlist-probe seed stage (each probed
 pivot's nearest stored points enter the beam exactly scored at
 iteration 0). The JAX package's ``while_loop``s are Python loops here,
 with one host read of the convergence flag per iteration and the same
-iteration bounds. Eager PyTorch fuses nothing, so the probe stages run
-over chunks of queries (:func:`_query_chunk`) where the JAX package
-relies on XLA to keep their temporaries small.
+iteration bounds; on a CUDA device the packed E=1 beam is instead one
+hand-written kernel per call (``ops/beam.py``, ``csrc/beam_packed.cu``)
+that walks each query to its end. Eager PyTorch fuses nothing, so the
+probe stages run over chunks of queries (:func:`_query_chunk`) where the
+JAX package relies on XLA to keep their temporaries small.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .ops import beam as beam_kernel
 from .ops.distance import l2sq
 from .ops.pq import adc_score, adc_score16, pq_lut
 from .ops.quant import dequantize
@@ -244,14 +247,12 @@ def _beam_loop(fetch, n: int, cap: int, q: torch.Tensor,
     neither in the beam nor the ring), tallied on the device."""
     e = max(1, min(int(expand_e), ef))
     if ring_size <= 0:
-        ring_size = max(2 * cap, 64, e * cap)
+        ring_size = _default_ring(cap, e)
     b = entry_ids.shape[0]
     with span("hnsw.search.beam", device=entry_ids.device, batch=b):
         beam_d2, beam_ids, beam_exp = init_beam(entry_d2, entry_ids, ef)
         ring = _init_ring(entry_ids, ring_size)
-        tally = (torch.zeros(1 + 2 * e * cap, dtype=torch.int64,
-                             device=entry_ids.device)
-                 if b > 1 and recording() else None)
+        tally = _new_tally(b, e * cap, entry_ids.device)
         iters = 0
         for _ in range(max_iters):
             if bool(beam_exp.all()):
@@ -262,12 +263,31 @@ def _beam_loop(fetch, n: int, cap: int, q: torch.Tensor,
                 beam_d2, beam_ids, beam_exp, ring, q, active, nbrs, pay, e,
                 cap, forbid, scored, tally)
             iters += 1
-        count("beam.iterations", iters)
-        if tally is not None:
-            count("beam.live_lanes", tally[0])
-            count("beam.rows_fetched", tally[1:1 + e * cap].sum())
-            count("beam.rows_new", tally[1 + e * cap:].sum())
+        _count_beam(iters, tally, e * cap)
     return beam_d2, beam_ids
+
+
+def _default_ring(cap: int, e: int) -> int:
+    """The ring's size when the caller gives none: every id written in
+    the last two expansions (at least 64 slots and one E-pop's rows)."""
+    return max(2 * cap, 64, e * cap)
+
+
+def _new_tally(b: int, slots: int, device) -> torch.Tensor | None:
+    """The beam's device tally (live lanes, then the valid and the new
+    neighbors per row slot) while a profiler records and B > 1."""
+    if b > 1 and recording():
+        return torch.zeros(1 + 2 * slots, dtype=torch.int64, device=device)
+    return None
+
+
+def _count_beam(iters, tally: torch.Tensor | None, slots: int) -> None:
+    """Count ``beam.iterations`` and, with a tally, its three sums."""
+    count("beam.iterations", iters)
+    if tally is not None:
+        count("beam.live_lanes", tally[0])
+        count("beam.rows_fetched", tally[1:1 + slots].sum())
+        count("beam.rows_new", tally[1 + slots:].sum())
 
 
 def search_layer(adj: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
@@ -347,7 +367,33 @@ def search_layer_packed(packed: torch.Tensor, q: torch.Tensor,
                         forbid: torch.Tensor | None = None):
     """:func:`search_layer` over the packed-neighbor layout — the same
     semantics and distances (at ``expand_e=1``), one row gather per
-    expansion; ``expand_e`` > 1 pops E entries per iteration."""
+    expansion; ``expand_e`` > 1 pops E entries per iteration.
+
+    On a CUDA device at E=1 the whole walk is one kernel launch
+    (``ops.beam.beam_packed``, the same beams up to the order of each
+    distance's sum; past the kernel's limits it raises), counted in
+    ``beam.kernel_calls``; CPU tensors and E > 1 take :func:`_beam_loop`."""
+    if not packed.is_cuda or max(1, min(int(expand_e), ef)) > 1:
+        return _search_layer_packed_loop(packed, q, entry_d2, entry_ids, ef,
+                                         max_iters, ring_size, expand_e,
+                                         forbid)
+    b, d = q.shape
+    cap = packed.shape[1] // (d + 12)
+    ring = ring_size if ring_size > 0 else _default_ring(cap, 1)
+    with span("hnsw.search.beam", device=packed.device, batch=b):
+        tally = _new_tally(b, cap, packed.device)
+        beam_d2, beam_ids, iters = beam_kernel.beam_packed(
+            packed, q, entry_d2, entry_ids, ef, max_iters, ring, forbid, tally)
+        count("beam.kernel_calls")
+        _count_beam(iters, tally, cap)
+    return beam_d2, beam_ids
+
+
+def _search_layer_packed_loop(packed, q, entry_d2, entry_ids, ef: int,
+                              max_iters: int, ring_size: int = 0,
+                              expand_e: int = 1, forbid=None):
+    """:func:`search_layer_packed` through :func:`_beam_loop` on any
+    device: the kernel's plain version."""
     n, w = packed.shape
     d = q.shape[1]
     cap = w // (d + 12)

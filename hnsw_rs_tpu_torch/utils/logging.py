@@ -216,10 +216,18 @@ def span(name: str, phases: dict | None = None, device=None,
 
 def count(name: str, n=1) -> None:
     """Add ``n`` to the process counter ``name`` and, inside a recorded
-    span, to that span's counts. ``n`` may be a device scalar tensor,
-    which stays on the device until the counts are read."""
+    span, to that span's counts. ``n`` may be a device scalar tensor: it
+    is counted only while a profiler records (otherwise nothing runs on
+    the device for it), stays on its device until the counts are read,
+    and is summed with the scalars of its own device only, so shards on
+    several cards never add across them."""
+    key = name
+    if isinstance(n, torch.Tensor):
+        if not recording():
+            return
+        key = (name, n.device)
     with _lock:
-        _totals[name] = _totals.get(name, 0) + n
+        _totals[key] = _totals.get(key, 0) + n
     st = getattr(_local, "stack", None)
     if st:
         c = st[-1]["counts"]
@@ -230,7 +238,11 @@ def counters() -> dict[str, int]:
     """The process totals of :func:`count` (device tallies read now)."""
     with _lock:
         totals = dict(_totals)
-    return {k: int(v) for k, v in totals.items()}
+    out = {}
+    for k, v in totals.items():
+        name = k if isinstance(k, str) else k[0]
+        out[name] = out.get(name, 0) + int(v)
+    return out
 
 
 def traced_spans() -> list[dict]:

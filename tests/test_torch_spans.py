@@ -119,6 +119,40 @@ def test_count_totals_match_a_hand_count():
     assert counters() == {} and traced_spans() == []
 
 
+class _OtherCard(torch.Tensor):
+    """A CPU scalar standing for one on a second card: it says so, and,
+    as CUDA tensors do, refuses arithmetic with a tensor of another card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 1)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        if any(type(t) is not cls for t in tensors) and len(tensors) > 1:
+            raise RuntimeError("Expected all tensors to be on the same device")
+        return super().__torch_function__(func, types, args, kwargs or {})
+
+
+def test_device_scalars_count_per_device_and_only_while_recording():
+    """Shards on two cards count their beams into one counter without
+    adding across the cards; with tracing off a device scalar costs no
+    device work and is not counted."""
+    count("t.dev", torch.tensor(4))
+    assert counters() == {}
+    with _profiler():
+        with span("hnsw.a"):
+            count("t.dev", torch.tensor(7))
+        with span("hnsw.b"):
+            count("t.dev", torch.tensor(5).as_subclass(_OtherCard))
+        count("t.dev", torch.tensor(2))
+        count("t.dev", torch.tensor(1).as_subclass(_OtherCard))
+        count("t.dev", 3)
+    assert counters() == {"t.dev": 18}
+    assert [r["counts"] for r in traced_spans()] == [{"t.dev": 7}, {"t.dev": 5}]
+
+
 @pytest.fixture(scope="module")
 def cluster_index():
     idx = HNSW(8, ef_cons=32, dim=16, device="cpu")

@@ -1,7 +1,7 @@
-"""Times the port's distance kernels through their wrappers on one GPU, so
-that two checkouts can be compared in one session on the same card.
+"""Times the port's kernels through their wrappers on one GPU, so that two
+checkouts can be compared in one run on the same card.
 
-    python3 tools/time_kernels.py [--root DIR] [--kernel k2|k1]
+    python3 tools/time_kernels.py [--root DIR] [--kernel k2|k1|k3]
                                   [--batches 1,256] [--n 262144] [--d 96]
 
 ``--root`` is the checkout whose ``hnsw_rs_tpu_torch`` is imported (this
@@ -27,6 +27,21 @@ their codes. For each batch size it prints one JSON line:
   ``ops/limbs.tensor_core_operands`` (plain PyTorch) that preparation,
   and then also ``launch_ms``, the C launch alone with the operands made
   outside the timed window.
+
+``--kernel k3`` times the packed layer-0 beam (``ops/beam.beam_packed``)
+at the three serving cells' walks instead (``--batches`` and ``--d`` are
+not read): ``batch`` (B 10,000, ef 16, 8 expansions, d 128), ``probed``
+(B 10,000, ef 384, up to 500 expansions, d 96) and ``online`` (B 1, as
+``batch``), cap 48, over ``--n`` points (default 1M for k3) in 1,000
+Gaussian clusters and a graph whose rows hold 24 random members of the
+point's cluster and 24 random points, seeded from the top-ef of 16,384
+random pivots. Each line gives ``call_ms`` (CUDA events), ``host_ms``,
+``device_ms``, ``kernel_device_ms`` and ``kernels_per_call`` as above,
+``expansions`` (summed over the queries, from the kernel's tally),
+``bound_ms`` (those rows' bytes over 3.35 TB/s), ``share`` (``bound_ms``
+over the kernel's device time) and ``plain_ms``: the plain version
+(``search._search_layer_packed_loop``, the lockstep loop) on the same
+inputs, by CUDA events.
 
 The first line printed is the card's name and power limit.
 """
@@ -79,13 +94,80 @@ def profiled(fn, reps, kernel_words):
     return sum(us) / reps / 1e3, mine / reps / 1e3, len(dev) / reps
 
 
+K3_WALKS = {  # name: (B, ef, max_iters, d)
+    "batch": (10_000, 16, 8, 128),
+    "probed": (10_000, 384, 500, 96),
+    "online": (1, 16, 8, 128),
+}
+
+
+def time_beam(n, seed):
+    """One JSON line per walk of ``K3_WALKS`` (module docstring)."""
+    from hnsw_rs_tpu_torch import search
+    from hnsw_rs_tpu_torch.ops import beam, cuda_build
+    from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
+
+    dev = torch.device("cuda", 0)
+    cuda_build.build("beam_packed")
+    cap, k = 48, 1000
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for walk, (b, ef, max_iters, d) in K3_WALKS.items():
+        cent = torch.rand((k, d), generator=g, device=dev)
+        lab = torch.randint(0, k, (n,), generator=g, device=dev)
+        codes, scales = quantize(cent[lab] + 0.05 * torch.randn(
+            (n, d), generator=g, device=dev))
+        order = torch.argsort(lab)
+        size = torch.bincount(lab, minlength=k)
+        start = torch.cumsum(size, 0) - size
+        pick = (torch.rand((n, cap // 2), generator=g, device=dev)
+                * size[lab][:, None]).long() + start[lab][:, None]
+        adj = torch.cat([order[pick], torch.randint(
+            0, n, (n, cap - cap // 2), generator=g, device=dev)], 1).int()
+        packed = search.pack_layer(adj, codes, scales)
+        del adj, pick, order
+        qlab = torch.randint(0, k, (b,), generator=g, device=dev)
+        q = dequantize(*quantize(cent[qlab] + 0.05 * torch.randn(
+            (b, d), generator=g, device=dev)))
+        piv = torch.randint(0, n, (16_384,), generator=g, device=dev).int()
+        e_d2, e_ids = search._pivot_seeds(
+            piv, dequantize(codes[piv.long()], scales[piv.long()]), q, ef)
+        ring = max(2 * cap, 64)
+        tally = torch.zeros(1 + 2 * cap, dtype=torch.int64, device=dev)
+        beam.beam_packed(packed, q, e_d2, e_ids, ef, max_iters, ring,
+                         tally=tally)
+        expansions = int(tally[0])
+
+        def call():
+            return beam.beam_packed(packed, q, e_d2, e_ids, ef, max_iters, ring)
+
+        reps = 200 if b == 1 else 20
+        call_ms, host_ms = events_ms(call, reps)
+        dev_ms, kern_ms, per_call = profiled(call, min(reps, 20),
+                                             ("beam_kernel",))
+        plain_ms = events_ms(lambda: search._search_layer_packed_loop(
+            packed, q, e_d2, e_ids, ef, max_iters), 2 if b > 1 else 20)[0]
+        bound_ms = expansions * cap * (d + 12) / 3.35e12 * 1e3
+        share = (bound_ms / kern_ms if isinstance(kern_ms, float) and kern_ms
+                 else "not measured")
+        print(json.dumps({
+            "kernel": "k3", "walk": walk, "B": b, "N": n, "d": d, "cap": cap,
+            "ef": ef, "max_iters": max_iters, "expansions": expansions,
+            "call_ms": call_ms, "host_ms": host_ms, "device_ms": dev_ms,
+            "kernel_device_ms": kern_ms, "kernels_per_call": per_call,
+            "bound_ms": bound_ms, "share": share, "plain_ms": plain_ms}),
+            flush=True)
+        del packed, codes, scales
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--kernel", choices=("k2", "k1"), default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k1", "k3"), default="k2")
     ap.add_argument("--batches", default="1,256")
-    ap.add_argument("--n", type=int, default=262_144)
+    ap.add_argument("--n", type=int, default=None,
+                    help="points (default 262,144; 1,000,000 for k3)")
     ap.add_argument("--d", type=int, default=96)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -97,6 +179,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    if args.kernel == "k3":
+        return time_beam(args.n or 1_000_000, args.seed)
+    args.n = args.n or 262_144
     from hnsw_rs_tpu_torch.ops import cuda_build, groupmin, l2_kernel
     from hnsw_rs_tpu_torch.ops.distance import point_normsq
     from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
