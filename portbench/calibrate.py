@@ -46,14 +46,14 @@ def main(argv=None) -> int:
         train, queries = cell.make_data()
         t1 = time.perf_counter()
         index, spans = cell.build(train)
-        ref = Reference(train, queries, cell.k, dev)
+        ref = Reference(train, queries, cell.k, dev, cell.config["metric"])
         qidx = np.arange(queries.shape[0])
         print(json.dumps({"seed": seed, "data_s": t1 - t0, **spans}), flush=True)
         past = None
         for rung in cell.workload["ladder"]:
             cell.rung = rung
             cell.search(index, queries)
-            torch.cuda.synchronize(dev)
+            cell.drain()
             t = time.perf_counter()
             d, i = cell.search(index, queries)
             call_s = time.perf_counter() - t

@@ -1,7 +1,8 @@
 """Run the control in the program's place: the reference computed in
-TF32 (``portbench/reference/control.py``), driven by a cell's own
-traffic at the cell's own size and judged as a run is. It has to come
-out not correct. Prints one JSON line of judged numbers per seed.
+TF32 (``portbench/reference/control.py``) in the stored space of the
+configuration's metric, driven by a cell's own traffic at the cell's own
+size and judged as a run is. It has to come out not correct. Prints one
+JSON line of judged numbers per seed.
 
     python3 portbench/control.py --workload sift1m.batch --seeds 1,2,3 --seconds 3
 """
@@ -26,11 +27,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
 
+    from portbench.lib.layout import Layout
     from portbench.reference import control
     from portbench.run import run_cell
 
-    if not torch.cuda.is_available():
-        print("control: no CUDA device", file=sys.stderr)
+    chips = int(Layout(ROOT).cell_entry(args.workload)["chips"])
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"control: the cell needs {chips} CUDA device(s)", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     for seed in (int(s) for s in args.seeds.split(",")):

@@ -1,8 +1,8 @@
 """The HNSW index, cluster-built, through the port's public API only:
-``HNSW(m, ef_cons, dim, device=)``, ``insert_bulk(cluster_build=True,
+``HNSW(m, ef_cons, dim, metric=, device=)``, ``insert_bulk(cluster_build=True,
 cluster_kwargs=...)``, ``finalize(...)``, the ``serve_probes`` attribute
-and ``ann_batch``. The configuration's ``index`` section gives every
-argument."""
+and ``ann_batch``. The configuration's ``metric`` and its ``index``
+section give every argument. One card: the first of the cell's devices."""
 
 from __future__ import annotations
 
@@ -17,15 +17,16 @@ def _drain(device):
         torch.cuda.synchronize(device)
 
 
-def build(index_cfg: dict, train: np.ndarray, device: torch.device):
+def build(config: dict, train: np.ndarray, devices: list[torch.device]):
     """Build and finalize; returns (index, spans) with the seconds of
     ``insert_bulk`` and of ``finalize``, each ended with the device
     drained."""
     from hnsw_rs_tpu_torch import HNSW
 
+    index_cfg, device = config["index"], devices[0]
     t0 = time.perf_counter()
     index = HNSW(index_cfg["m"], ef_cons=index_cfg["ef_cons"],
-                 dim=train.shape[1], device=device)
+                 dim=train.shape[1], metric=config["metric"], device=device)
     index.insert_bulk(train, cluster_build=True,
                       cluster_kwargs=dict(index_cfg["cluster_kwargs"]))
     _drain(device)

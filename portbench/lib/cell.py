@@ -3,8 +3,11 @@
 A traffic module (``portbench/traffic/<kind>.py``) gets a :class:`Cell`
 and returns a record. The cell makes the data from the seed, builds and
 queries through the configuration's index family, and runs the bounded
-traced span. The record holds what the metric readers read and the
-answers the judge compares:
+traced span. It holds the devices its ``chips`` ask for, ``devices``
+(``cuda:0`` ... ``cuda:chips-1``; on the CPU as many stand-ins of the
+one CPU device), and ``device``, the first of them, where the data is
+made and the judge runs. The record holds what the metric readers read
+and the answers the judge compares:
 
 - ``window_start`` (perf_counter seconds) and ``window_s``: the measured
   window, which starts after every warm-up;
@@ -24,6 +27,15 @@ from .layout import Layout
 from .trace import profile_span
 
 
+def cell_devices(device: torch.device, chips: int) -> list[torch.device]:
+    """The devices of a cell on ``chips`` cards of ``device``'s kind:
+    ``cuda:0`` ... ``cuda:chips-1``, or ``chips`` stand-ins of the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [device] * chips
+
+
 class Cell:
     def __init__(self, layout: Layout, name: str, seed: int, seconds: float,
                  trace: bool, device: torch.device, family=None):
@@ -31,7 +43,10 @@ class Cell:
         self.workload = layout.workload(name)
         self.config = layout.config(self.workload["config"])
         self.seed, self.seconds, self.trace = int(seed), float(seconds), bool(trace)
-        self.device = device
+        self.devices = cell_devices(device, int(layout.cell_entry(name)["chips"]))
+        self.device = self.devices[0]
+        # each card once, in order: what is drained, traced and read for peaks
+        self.cards = [d for d in dict.fromkeys(self.devices) if d.type == "cuda"]
         self.params = self.workload.get("params", {})
         self.rung = self.workload.get("rung", {})
         self.k = int(self.config["k"])
@@ -53,16 +68,18 @@ class Cell:
         return self.train, self.queries
 
     def build(self, train: np.ndarray):
-        """(index, spans) through the family, device drained."""
-        return self.family.build(self.config["index"], train, self.device)
+        """(index, spans) through the family, handed the configuration
+        and the cell's devices; the family drains what it used."""
+        return self.family.build(self.config, train, self.devices)
 
     def search(self, index, queries: np.ndarray):
         return self.family.search(index, queries, self.k, self.rung)
 
     def drain(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for every one of the cell's cards."""
+        for d in self.cards:
+            torch.cuda.synchronize(d)
 
     def traced(self, fn):
         """``fn()`` under the profiler: (result, trace)."""
-        return profile_span(fn, self.device)
+        return profile_span(fn, self.cards)

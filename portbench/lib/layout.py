@@ -8,7 +8,8 @@ entries and no edit:
 - ``portbench/configs/<config>.json``
 - ``portbench/workloads/<cell>.json``
 - ``portbench/traffic/<kind>.py``      (``run(cell) -> record``)
-- ``portbench/indexes/<family>.py``    (``build``, ``search``)
+- ``portbench/indexes/<family>.py``    (``build(config, train, devices)``,
+  ``search``)
 - ``portbench/data/<generator>.py``    (``make(spec, seed, device)``)
 - ``portbench/metrics/<metric>.py``    (``read(record) -> float | None``)
 """

@@ -6,11 +6,18 @@ busy time taken as the union of device intervals (kernels that overlap
 on two streams count once) and not as a sum of durations.
 
 A record is ``{"name": str, "device": bool, "kernel": bool, "t0": ns,
-"t1": ns}``: ``device`` marks work on the card (kernels, copies, sets),
+"t1": ns}``: ``device`` marks work on a card (kernels, copies, sets),
 ``kernel`` a kernel among them (one launch each); the rest is host
-activity (operators, CUDA runtime calls, the span's own marker). The
-profiler's device-side copies of annotation spans are not work and are
-dropped.
+activity (operators, CUDA runtime calls, the span's own marker). A device
+record also carries ``device_index``, its card (0 where a record lacks
+it). The profiler's device-side copies of annotation spans are not work
+and are dropped. The trace lists the cell's cards under ``devices``.
+
+Over several cards: ``busy_s`` and the idle share are each card's own,
+1 - busy union / span, averaged over the cell's cards (a card with no
+record is idle all through); ``breakdown``'s device operations sum every
+card's, and its idle gaps are the stretches in which no card is busy.
+With one card all three read as they would without the index.
 """
 
 from __future__ import annotations
@@ -24,43 +31,59 @@ SYNC_NAMES = frozenset({
     "cuEventSynchronize", "cuMemcpyDtoH_v2", "cuMemcpyDtoH"})
 
 
-def profile_span(fn, device):
+def profile_span(fn, cards):
     """Run ``fn()`` once under the profiler, inside a marker span that
-    ends after the device has drained. Returns ``(fn's result, trace)``
-    with ``trace = {"events": [...], "t0": ns, "t1": ns}``."""
+    ends after every one of ``cards`` (CUDA devices; none on the CPU) has
+    drained. Returns ``(fn's result, trace)`` with ``trace = {"events":
+    [...], "t0": ns, "t1": ns, "devices": [card indices]}``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if cards:
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         with record_function(SPAN):
             out = fn()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            for d in cards:
+                torch.cuda.synchronize(d)
     raw = [(e.name(), e.device_type() != torch.autograd.DeviceType.CPU,
-            int(e.start_ns()), int(e.end_ns()))
+            int(e.start_ns()), int(e.end_ns()), int(e.device_index()))
            for e in prof.profiler.kineto_results.events()]
     # an annotation's device-side copy carries its host span's name; no
     # kernel or copy is named like a host operator or runtime call
-    host_names = {name for name, dev, _, _ in raw if not dev}
-    events = [{"name": name, "device": dev,
-               "kernel": dev and not name.startswith(("Memcpy", "Memset")),
-               "t0": t0, "t1": t1}
-              for name, dev, t0, t1 in raw
-              if not (dev and name in host_names)]
+    host_names = {name for name, dev, _, _, _ in raw if not dev}
+    events = []
+    for name, dev, t0, t1, idx in raw:
+        if dev and name in host_names:
+            continue
+        e = {"name": name, "device": dev,
+             "kernel": dev and not name.startswith(("Memcpy", "Memset")),
+             "t0": t0, "t1": t1}
+        if dev:
+            e["device_index"] = idx
+        events.append(e)
     span = [e for e in events if e["name"] == SPAN and not e["device"]]
     if not span:
         raise RuntimeError("the profiler recorded no span marker")
-    return out, {"events": events, "t0": span[0]["t0"], "t1": span[0]["t1"]}
+    return out, {"events": events, "t0": span[0]["t0"], "t1": span[0]["t1"],
+                 "devices": [d.index for d in cards]}
 
 
-def device_intervals(trace) -> list[tuple[int, int]]:
-    """Merged device-busy intervals, clipped to the span."""
+def trace_cards(trace) -> list[int]:
+    """The cell's cards: those the trace lists, else those its device
+    records name."""
+    return list(trace.get("devices") or sorted(
+        {e.get("device_index", 0) for e in trace["events"] if e["device"]}))
+
+
+def device_intervals(trace, card: int | None = None) -> list[tuple[int, int]]:
+    """Merged busy intervals of one card, clipped to the span; with
+    ``card`` None, of all cards together (some card busy)."""
     lo, hi = trace["t0"], trace["t1"]
     iv = sorted((max(e["t0"], lo), min(e["t1"], hi)) for e in trace["events"]
-                if e["device"] and e["t1"] > lo and e["t0"] < hi)
+                if e["device"] and e["t1"] > lo and e["t0"] < hi
+                and (card is None or e.get("device_index", 0) == card))
     merged: list[list[int]] = []
     for a, b in iv:
         if merged and a <= merged[-1][1]:
@@ -71,14 +94,18 @@ def device_intervals(trace) -> list[tuple[int, int]]:
 
 
 def busy_window_s(trace) -> tuple[float, float]:
-    """(seconds in which some operation ran on the device, span seconds)."""
-    busy = sum(b - a for a, b in device_intervals(trace))
+    """(seconds in which some operation ran on a card, averaged over the
+    cell's cards; span seconds)."""
+    cards = trace_cards(trace)
+    busy = (sum(sum(b - a for a, b in device_intervals(trace, c)) for c in cards)
+            / len(cards) if cards else 0)
     return busy / 1e9, (trace["t1"] - trace["t0"]) / 1e9
 
 
 def idle_share(trace) -> float | None:
-    """1 - device-busy union / span; None when the span saw no device
-    operation (a CPU run): nothing to read."""
+    """Each card's 1 - busy union / span, averaged over the cell's cards;
+    None when the span saw no device operation (a CPU run): nothing to
+    read."""
     busy, window = busy_window_s(trace)
     if busy <= 0 or window <= 0:
         return None
@@ -120,10 +147,11 @@ def has_device(trace) -> bool:
 
 
 def breakdown(trace, top: int = 10) -> dict:
-    """The device operations that took most time, and the idle gaps by
-    what the host was doing: each gap between merged device intervals is
-    charged to the shortest host record that covers its midpoint (the
-    innermost operator or runtime call), or to "host (no operator)"."""
+    """The device operations that took most time, summed over every card,
+    and the idle gaps by what the host was doing: each gap in which no
+    card is busy is charged to the shortest host record that covers its
+    midpoint (the innermost operator or runtime call), or to "host (no
+    operator)"."""
     lo, hi = trace["t0"], trace["t1"]
     per_op: dict[str, float] = {}
     for e in trace["events"]:

@@ -5,10 +5,12 @@ It is an index family like ``portbench/indexes/*.py`` (``build``,
 ``search``), so the harness drives it through the same traffic and the
 same judge; it has to come out not correct. The product's operands are
 rounded to TF32 (a 10-bit mantissa) and multiplied with float32 sums,
-which is what a TF32 tensor core computes; the rounding is done here and
-not left to ``allow_tf32``, since cuBLAS takes a path without tensor
-cores for some shapes (one query: a matrix-vector product) and would
-then compute in float32. ``python portbench/control.py`` runs it.
+which is what a TF32 tensor core computes, over the stored vectors of
+the configuration's ``metric`` (``quant.stored``, as the judge takes
+them). The rounding is done here and not left to ``allow_tf32``, since
+cuBLAS takes a path without tensor cores for some shapes (one query: a
+matrix-vector product) and would then compute in float32.
+``python portbench/control.py`` runs it.
 """
 
 from __future__ import annotations
@@ -16,12 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .quant import quantize_dequantize
+from .quant import stored
 
 
 class ControlIndex:
-    def __init__(self, points: torch.Tensor):
-        self.points = points
+    def __init__(self, points: torch.Tensor, metric: str):
+        self.points, self.metric = points, metric
         self.norms = (points * points).sum(dim=1)
         self.points_tf32 = _tf32(points)
 
@@ -33,19 +35,22 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return b.view(torch.float32)
 
 
-def build(index_cfg: dict, train: np.ndarray, device: torch.device):
-    """Quantize the points; no graph. Returns (index, spans)."""
-    pts = quantize_dequantize(torch.from_numpy(train).to(device))
+def build(config: dict, train: np.ndarray, devices: list[torch.device]):
+    """The points in the stored space on the first device; no graph.
+    Returns (index, spans)."""
+    device = devices[0]
+    pts = stored(torch.from_numpy(train).to(device), config["metric"])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return ControlIndex(pts), {"insert_bulk_s": 0.0, "finalize_s": 0.0}
+    return (ControlIndex(pts, config["metric"]),
+            {"insert_bulk_s": 0.0, "finalize_s": 0.0})
 
 
 def search(index: ControlIndex, queries: np.ndarray, k: int, rung: dict):
     """Exact top-k by ``|q|^2 + |x|^2 - 2 q.x`` with the product in TF32;
     (sqrt(d2), ids) as numpy, as the program's ``ann_batch`` returns."""
-    q = quantize_dequantize(torch.from_numpy(np.asarray(queries, np.float32))
-                            .to(index.points.device))
+    q = stored(torch.from_numpy(np.asarray(queries, np.float32))
+               .to(index.points.device), index.metric)
     x = index.points
     block = max(1, (2 << 30) // (4 * x.shape[0]))
     ds, ids = [], []

@@ -1,10 +1,13 @@
 """The comparison that decides ``correct``.
 
 Every answer the window produced is judged against the reference: the
-seed's vectors and queries are quantized by the frozen rule
-(``quant.py``), the exact top-k found in float64 (``exact.py``), and
-each answered row compared with it. The numbers, each with its limit
-from the configuration's ``check``:
+seed's vectors and queries are put in the index's stored space by the
+frozen rules for the configuration's ``metric`` (``quant.stored``: the
+8-bit rule, after unit normalization for ``"cosine"``), the exact top-k
+found there in float64 (``exact.py``), and each answered row compared
+with it. Under ``"cosine"`` the index returns L2 distances between its
+stored unit vectors, so every check below reads those. The numbers, each
+with its limit from the configuration's ``check``:
 
 - ``recall_at_10``: mean over every answered query of |ids & exact| / k.
   The configuration's own guarantee (recall@10 >= 0.99) is its limit.
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from .exact import exact_topk, pair_d2
-from .quant import quantize_dequantize
+from .quant import stored
 
 
 def limits(check: dict) -> dict:
@@ -35,14 +38,15 @@ def limits(check: dict) -> dict:
 
 
 class Reference:
-    """The seed's points and queries in the stored space, and their exact
-    top-k, made once; :meth:`judge` compares any number of answers."""
+    """The seed's points and queries in the stored space of ``metric``
+    (``"l2"`` or ``"cosine"``; any other raises), and their exact top-k,
+    made once; :meth:`judge` compares any number of answers."""
 
     def __init__(self, train: np.ndarray, queries: np.ndarray, k: int,
-                 device: torch.device):
+                 device: torch.device, metric: str):
         self.k, self.device = k, device
-        self.pts = quantize_dequantize(torch.from_numpy(train).to(device))
-        self.qs = quantize_dequantize(torch.from_numpy(queries).to(device))
+        self.pts = stored(torch.from_numpy(train).to(device), metric)
+        self.qs = stored(torch.from_numpy(queries).to(device), metric)
         self.truth = exact_topk(self.pts, self.qs, k)
 
     def judge(self, answers, rows_per_block: int = 1 << 16) -> dict:

@@ -5,14 +5,27 @@ A copy of the rule the index stores its points in (the Rust reference's
 ``delta = (max - min) / 255`` and codes ``floor((x - min) / delta +
 0.5)`` clipped to [0, 255]; a constant vector gets all-zero codes. The
 divisions are tensor by tensor, as IEEE float32 division, so the codes
-are those the index holds bit for bit. Imports nothing of the program.
+are those the index holds bit for bit. Under ``metric="cosine"`` the
+index unit-normalizes first (``norm.py``). Imports nothing of the program.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .norm import normalize
+
 LEVELS = 255.0
+METRICS = ("l2", "cosine")
+
+
+def stored(x: torch.Tensor, metric: str) -> torch.Tensor:
+    """``x`` float[N, d] -> the vectors the index stores and compares
+    under ``metric``: the 8-bit rule, after unit normalization for
+    ``"cosine"``. Points and queries alike."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; the index knows {METRICS}")
+    return quantize_dequantize(normalize(x) if metric == "cosine" else x)
 
 
 def quantize_dequantize(x: torch.Tensor, block: int = 1 << 18) -> torch.Tensor:

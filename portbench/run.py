@@ -44,8 +44,10 @@ def forbidden_modules(modules=None) -> list[str]:
 
 def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
              device, t_start: float | None = None, family=None) -> dict:
-    """One run; returns the result object (without printing). ``family``
-    replaces the configuration's index family (the control)."""
+    """One run; returns the result object (without printing). ``device``
+    gives the kind: a ``cuda`` run takes ``cuda:0`` ... ``cuda:chips-1``, a
+    CPU run as many stand-ins of the CPU. ``family`` replaces the
+    configuration's index family (the control)."""
     import torch
 
     from portbench.lib.cell import Cell
@@ -57,20 +59,22 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     layout = Layout(root)
     entry = layout.cell_entry(name)
     cell = Cell(layout, name, seed, seconds, trace, device, family)
-    if device.type == "cuda":
+    if cell.cards:
         torch.cuda.init()
-        torch.cuda.reset_peak_memory_stats(device)
+    for d in cell.cards:
+        torch.cuda.reset_peak_memory_stats(d)
     traffic = layout.module("traffic", cell.workload["traffic"])
     record = traffic.run(cell)
     record["setup_s"] = record["window_start"] - t_start
     cell.drain()
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else 0)
+    # the fullest card's peak
+    peak = max((torch.cuda.max_memory_allocated(d) for d in cell.cards), default=0)
     answers = record.pop("answers")
     gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    numbers = Reference(cell.train, cell.queries, cell.k, device).judge(answers)
+    if cell.cards:
+        torch.cuda.empty_cache()  # every card's cache
+    numbers = Reference(cell.train, cell.queries, cell.k, cell.device,
+                        cell.config["metric"]).judge(answers)
     del answers
     record["judge"] = numbers
     correct, checks = verdict(numbers, limits(cell.config["check"]))
@@ -81,9 +85,9 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
         v = layout.module("metrics", m["name"]).read(record)
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-           "kind": (torch.cuda.get_device_name(device)
-                    if device.type == "cuda" else device.type),
+    dev = {"platform": "gpu" if cell.cards else cell.device.type,
+           "kind": (torch.cuda.get_device_name(cell.device)
+                    if cell.cards else cell.device.type),
            "count": int(entry["chips"]), "memory_peak_bytes": int(peak)}
     out = {"correct": bool(correct), "attempted": int(numbers["attempted"]),
            "failed": int(numbers["bad_rows"]), "metrics": metrics, "device": dev}

@@ -32,6 +32,43 @@ def test_busy_window():
     assert busy_window_s(TRACE) == pytest.approx((4500e-9, 10000e-9))
 
 
+def _two_cards(devices=None):
+    # card 0 busy [1000, 3000], card 1 busy [2000, 7000]: no card busy in
+    # [0, 1000] (a launch covers its midpoint) and [7000, 10000]
+    tr = {"t0": 0, "t1": 10000, "events": [
+        {"name": "portbench.traced_span", "device": False, "kernel": False,
+         "t0": 0, "t1": 10000},
+        {"name": "cudaLaunchKernel", "device": False, "kernel": False,
+         "t0": 400, "t1": 900},
+        {"name": "gemm_kernel", "device": True, "kernel": True,
+         "t0": 1000, "t1": 3000, "device_index": 0},
+        {"name": "gemm_kernel", "device": True, "kernel": True,
+         "t0": 2000, "t1": 7000, "device_index": 1}]}
+    if devices is not None:
+        tr["devices"] = devices
+    return tr
+
+
+@pytest.mark.parametrize("devices, idle", [
+    (None, (0.8 + 0.5) / 2),        # the cards the records name
+    ([0, 1], (0.8 + 0.5) / 2),
+    ([0, 1, 2, 3], (0.8 + 0.5 + 1.0 + 1.0) / 4),  # two cards idle all through
+])
+@pytest.mark.parametrize("kind", ["batch", "probed", "online", "build"])
+def test_device_idle_is_the_mean_over_cards(kind, devices, idle):
+    tr = _two_cards(devices)
+    assert read(f"device_idle.{kind}", {"trace": tr}) == pytest.approx(idle)
+    busy, window = busy_window_s(tr)
+    assert window == pytest.approx(1e-5) and 1 - busy / window == pytest.approx(idle)
+
+
+def test_breakdown_over_cards():
+    b = breakdown(_two_cards([0, 1]))
+    assert b["device_ops"] == [["gemm_kernel", pytest.approx(7000e-9)]]
+    assert dict((k, v) for k, v in b["idle_gaps"]) == pytest.approx(
+        {"host (no operator)": 3000e-9, "cudaLaunchKernel": 1000e-9})
+
+
 def test_syncs_and_launches():
     rec = {"trace": TRACE, "traced_calls": 2, "traced_queries": 4}
     assert read("syncs_per_call.batch", rec) == 1.0  # two stream syncs

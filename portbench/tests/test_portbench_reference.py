@@ -1,4 +1,5 @@
-"""The plain reference: the frozen 8-bit rule, exact top-k and the judge."""
+"""The plain reference: the frozen 8-bit and normalization rules, exact
+top-k and the judge, in the stored space of either metric."""
 
 import numpy as np
 import pytest
@@ -6,6 +7,7 @@ import torch
 
 from portbench.reference.exact import exact_topk
 from portbench.reference.judge import Reference, limits, verdict
+from portbench.reference.norm import normalize
 from portbench.reference.quant import quantize_dequantize
 
 
@@ -45,9 +47,15 @@ def test_exact_topk_matches_brute_force():
     assert np.all(np.diff(np.take_along_axis(d2, ids, 1), axis=1) >= 0)
 
 
-def _exact_answers(x, q, k=10):
-    xs = _np_rule(x).astype(np.float64)
-    qs = _np_rule(q).astype(np.float64)
+def _stored(x, metric):
+    if metric == "cosine":
+        x = normalize(torch.from_numpy(x)).numpy()
+    return _np_rule(x)
+
+
+def _exact_answers(x, q, k=10, metric="l2"):
+    xs = _stored(x, metric).astype(np.float64)
+    qs = _stored(q, metric).astype(np.float64)
     d2 = ((qs[:, None, :] - xs[None, :, :]) ** 2).sum(-1)
     ids = np.argsort(d2, axis=1, kind="stable")[:, :k]
     dist = np.sqrt(np.take_along_axis(d2, ids, 1)).astype(np.float32)
@@ -56,7 +64,7 @@ def _exact_answers(x, q, k=10):
 
 def test_judge_passes_exact_answers_and_catches_each_fault():
     x, q = _data()
-    ref = Reference(x, q, 10, torch.device("cpu"))
+    ref = Reference(x, q, 10, torch.device("cpu"), "l2")
     lims = limits({"recall_at_10_min": 0.99, "dist_err_max": 1e-5})
     dist, ids = _exact_answers(x, q)
     qi = np.arange(q.shape[0])
@@ -89,7 +97,7 @@ def test_judge_passes_exact_answers_and_catches_each_fault():
 @pytest.mark.parametrize("rows", [1, 3, 40])
 def test_judge_reblocks_single_query_answers(rows):
     x, q = _data()
-    ref = Reference(x, q, 10, torch.device("cpu"))
+    ref = Reference(x, q, 10, torch.device("cpu"), "l2")
     dist, ids = _exact_answers(x, q)
     answers = [(np.array([j]), dist[j:j + 1], ids[j:j + 1]) for j in range(40)]
     n = ref.judge(answers, rows_per_block=rows)
@@ -105,3 +113,38 @@ def test_control_rounds_to_tf32():
     assert y[1] in (1.0, 1.0 + 2.0 ** -10)
     assert abs(float(y[3]) - 3.14159265) <= 2.0 ** -10 * 2
     assert torch.all((y.view(torch.int32) & 0x1FFF) == 0)
+
+
+@pytest.mark.parametrize("d", [16, 100, 128])
+def test_normalize_matches_the_port(d):
+    from hnsw_rs_tpu_torch.ops.distance import normalize as port_normalize
+
+    x = np.random.default_rng(d).normal(size=(300, d)).astype(np.float32)
+    x[7] = 0.0  # a zero row passes through
+    x[8] *= 1e-20
+    t = torch.from_numpy(x)
+    ref, port = normalize(t), port_normalize(t)
+    assert ref.dtype == torch.float32
+    assert torch.equal(ref.view(torch.int32), port.view(torch.int32))
+    assert torch.all(ref[7] == 0.0)
+
+
+def test_cosine_reference_judges_in_the_unit_space():
+    x, q = _data()
+    x[7] = 0.0
+    ref = Reference(x, q, 10, torch.device("cpu"), "cosine")
+    lims = limits({"recall_at_10_min": 0.99, "dist_err_max": 2e-5})
+    qi = np.arange(q.shape[0])
+    good = ref.judge([(qi, *_exact_answers(x, q, metric="cosine"))])
+    assert good["recall_at_10"] == 1.0 and good["dist_err"] < 1e-6
+    assert verdict(good, lims)[0]
+    # the raw space's exact answers are wrong distances in the unit space
+    raw = ref.judge([(qi, *_exact_answers(x, q))])
+    assert raw["dist_err"] > 1e-2 and not verdict(raw, lims)[0]
+
+
+@pytest.mark.parametrize("metric", ["ip", "L2", "angular", ""])
+def test_reference_refuses_an_unknown_metric(metric):
+    x, q = _data()
+    with pytest.raises(ValueError, match="unknown metric"):
+        Reference(x, q, 10, torch.device("cpu"), metric)

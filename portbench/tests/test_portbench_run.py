@@ -8,6 +8,7 @@ import sys
 import pytest
 import torch
 
+from portbench.lib.cell import cell_devices
 from portbench.run import forbidden_modules, run_cell
 
 from . import tinyroot
@@ -65,3 +66,40 @@ def test_tiny_run_loads_nothing_of_jax(tmp_path):
                        text=True, timeout=300)
     assert p.returncode == 0, p.stderr[-2000:]
     assert p.stdout.split()[-2:] == ["True", "[]"]
+
+
+@pytest.mark.parametrize("cell, metric", [("tiny.batch", "l2"),
+                                          ("tinyc.batch", "cosine")])
+def test_the_index_gets_the_configurations_metric(tmp_path, monkeypatch, cell, metric):
+    from hnsw_rs_tpu_torch import HNSW
+
+    seen = []
+    init = HNSW.__init__
+
+    def spy(self, *a, **kw):
+        init(self, *a, **kw)
+        seen.append(self.params.metric)
+
+    monkeypatch.setattr(HNSW, "__init__", spy)
+    root = tinyroot.make(tmp_path)
+    out = run_cell(root, cell, 2**31 + 23, 0.3, False, torch.device("cpu"))
+    assert out["correct"], out["checks"]
+    assert seen == [metric]
+
+
+def test_a_cells_devices_follow_its_chips():
+    assert cell_devices(torch.device("cuda", 0), 4) == [
+        torch.device("cuda", i) for i in range(4)]
+    assert cell_devices(torch.device("cuda", 0), 1) == [torch.device("cuda", 0)]
+    assert cell_devices(torch.device("cpu"), 4) == [torch.device("cpu")] * 4
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_a_four_chip_cell_hands_its_family_four_devices(tmp_path, trace):
+    root = tinyroot.make(tmp_path)
+    cell = tinyroot.add_stub_cell(root, chips=4)
+    out = run_cell(root, cell, 2**31 + 31, 0.3, bool(trace), torch.device("cpu"))
+    assert out["correct"], out["checks"]
+    assert json.loads((root / "seen.json").read_text()) == {
+        "devices": ["cpu"] * 4, "metric": "l2"}
+    assert out["device"]["count"] == 4
