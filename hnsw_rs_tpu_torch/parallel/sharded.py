@@ -7,7 +7,21 @@ an independent HNSW sub-graph over its slice, and a query fans out to
 every shard — the same lockstep beam search on each sub-index — after
 which the per-shard top-k candidates are merged: concatenated in shard
 order and sorted by (dist, id). The reference has no analogue (single
-process, ``hnsw/src/template.rs:422-439``).
+process, ``hnsw/src/template.rs:422-439``). After :meth:`ShardedHNSW.finalize`
+a shard serves as a finalized ``HNSW`` does: pivot-seeded over packed
+rows, or with ``pivot_shortlist`` through the probed route
+(``search.ann_search_seeded_probe_packed``); ``serving_route()`` names
+the branch.
+
+Fan-out. A query's slices are copied to every shard's device first (a
+cross-device copy runs on the source device's stream, so one issued after
+shard 0's search would wait for it), then the shards' searches are issued
+in turn from the calling thread, and nothing reads the device back until
+the merge has been issued. The cards still take turns where a shard's
+search issues more kernels than its card's launch queue holds: the host
+blocks on that queue and reaches the next card only when most of the
+shard's work has run (one host thread a card is slower still: the
+threads hand the GIL to each other at every operation).
 
 Layout. The JAX package stacks every shard's state on a leading
 ``[S, ns, ...]`` axis and runs each step as one ``shard_map`` program. The
@@ -30,13 +44,15 @@ import torch
 
 from ..build import _insert_wave_fused_impl, wave_schedule
 from ..build_cluster import _orphan_fix
-from ..models.hnsw import HNSW
+from ..models.hnsw import HNSW, _build_shortlist
 from ..ops.cover import _kcenter
 from ..ops.quant import dequantize, quantize
 from ..ops.topk import PAD_ID, sort_dist_id
 from ..params import Params
-from ..search import ann_search, ann_search_seeded, pack_layer
+from ..search import (ann_search, ann_search_seeded,
+                      ann_search_seeded_probe_packed, pack_layer)
 from ..store import sample_levels
+from ..utils.logging import count, span
 from .mesh import Mesh
 
 FORMAT = "hnsw_rs_tpu.sharded.v1"
@@ -69,18 +85,26 @@ def _per_row(mesh: Mesh, q, k: int, search_shard):
     """Split ``q`` over the mesh's data rows; in row ``r`` every shard
     ``s`` answers the row's slice on device ``mesh.devices[r, s]``
     (``search_shard(s, dev, q_slice)``), and the results are merged on
-    ``q``'s device and concatenated in batch order."""
-    n_shard = mesh.devices.shape[1]
-    out_d, out_i = [], []
-    for r, qr in enumerate(torch.tensor_split(q, mesh.devices.shape[0])):
-        if qr.shape[0] == 0:
-            continue
-        parts = [search_shard(s, mesh.devices[r, s], qr.to(mesh.devices[r, s]))
-                 for s in range(n_shard)]
-        d, i = merge_topk(parts, k, q.device)
-        out_d.append(d)
-        out_i.append(i)
-    return torch.cat(out_d), torch.cat(out_i)
+    ``q``'s device and concatenated in batch order.
+
+    Every slice is on its device before any search is issued (the
+    module's fan-out note). Spans: ``hnsw.sharded.shard`` (field
+    ``shard``, on the shard's device) around each search,
+    ``hnsw.sharded.merge`` (on ``q``'s device) around the copies back and
+    the merges; counter ``sharded.shards_searched``."""
+    rows = [(r, [qr.to(dev) for dev in mesh.devices[r]])
+            for r, qr in enumerate(torch.tensor_split(q, mesh.devices.shape[0]))
+            if qr.shape[0]]
+    parts = []
+    for r, qs in rows:
+        parts.append([])
+        for s, qr in enumerate(qs):
+            with span("hnsw.sharded.shard", device=mesh.devices[r, s], shard=s):
+                parts[-1].append(search_shard(s, mesh.devices[r, s], qr))
+                count("sharded.shards_searched")
+    with span("hnsw.sharded.merge", device=q.device):
+        merged = [merge_topk(p, k, q.device) for p in parts]
+    return torch.cat([m[0] for m in merged]), torch.cat([m[1] for m in merged])
 
 
 def sharded_query(mesh: Mesh, adjs_s, codes_s, scales_s, gids_s, eps_s, q,
@@ -121,6 +145,30 @@ def sharded_query_seeded(mesh: Mesh, packed_s, pivot_ids_s, pivot_vecs_s,
                                    pivot_vecs_s[s].to(dev), qr, ef, k,
                                    max_iters, expand_e)
         return d, _global_ids(ids, gids_s[s].to(dev))
+
+    return _per_row(mesh, q, k, one)
+
+
+def sharded_query_probe_packed(mesh: Mesh, packed_s, pivot_ids_s, pivot_vecs_s,
+                               shortlist_pack_s, t: int, gids_s, q, ef: int,
+                               k: int, max_iters: int, probes: int,
+                               expand_e: int = 1):
+    """Mesh-wide probed query: every shard seeds from its pivots, scores
+    the ``probes`` nearest pivots' shortlists exactly and walks its local
+    layer-0 beam over its packed rows
+    (``search.ann_search_seeded_probe_packed``, a finalized ``HNSW``'s
+    ``probe_packed`` route), and the shards' top-k are merged as in
+    :func:`sharded_query`. ``shortlist_pack_s`` u8[P, t*(d+12)] per shard:
+    ``pack_layer`` over the shard's pivot shortlists (local ids). Returns
+    global-id (sqrt distance, id) top-k."""
+    d = q.shape[1]
+
+    def one(s, dev, qr):
+        dist, ids = ann_search_seeded_probe_packed(
+            packed_s[s].to(dev), pivot_ids_s[s].to(dev), pivot_vecs_s[s].to(dev),
+            shortlist_pack_s[s].to(dev), t, d, qr, ef, k, max_iters, probes,
+            expand_e)
+        return dist, _global_ids(ids, gids_s[s].to(dev))
 
     return _per_row(mesh, q, k, one)
 
@@ -187,6 +235,11 @@ class ShardedHNSW:
         self._packed = None
         self._pack_n = -1
         self.serve_expand = 1
+        # per-shard pivot shortlists (finalize(pivot_shortlist=T)): (i32[P, T]
+        # local ids, their pack_layer rows) per shard, or None; made and
+        # gone stale with _packed. serve_probes = pivots probed per query
+        self._shortlist = None
+        self.serve_probes = 16
         # per-shard cluster-representative pivot hints (LOCAL row ids,
         # [S, K] -1-padded) from the concurrent cluster build; finalize
         # seeds from them first, like HNSW._cluster_pivots
@@ -224,7 +277,7 @@ class ShardedHNSW:
         vectors = np.asarray(vectors, np.float32)
         self.shards = []
         self._stacked = None
-        self._packed = None
+        self._packed = self._shortlist = None
         self._pack_n = -1
         self._cluster_reps = None
         n = vectors.shape[0]
@@ -430,7 +483,7 @@ class ShardedHNSW:
         S = self.n_shards
         p = self.params
         st = self._stacked
-        self._packed = None  # the serving pack goes stale
+        self._packed = self._shortlist = None  # the serving pack goes stale
         self._pack_n = -1
         n_new = int(gids_new.shape[0])
 
@@ -538,7 +591,7 @@ class ShardedHNSW:
         if n_move == 0 or int(np.abs(surplus).max()) <= tol * max(base, 1):
             return 0
         st = self._stacked
-        self._packed = None
+        self._packed = self._shortlist = None
         self._pack_n = -1
         ns = int(self._levels.shape[1])
 
@@ -613,8 +666,8 @@ class ShardedHNSW:
     # -- serving layouts ---------------------------------------------------
 
     def finalize(self, expand: int = 1, pivots: int = 2048,
-                 pivot_fill: str = "cover",
-                 pivot_cover: float = 0.25) -> "ShardedHNSW":
+                 pivot_fill: str = "cover", pivot_cover: float = 0.25,
+                 pivot_shortlist: int = 0) -> "ShardedHNSW":
         """Build the packed and pivot-seeded serving state per shard (the
         single index's ``HNSW.finalize`` scaled out): each shard gets
         packed layer-0 rows and its own pivot skeleton. A stale pack
@@ -625,12 +678,19 @@ class ShardedHNSW:
         ``pivot_fill``/``pivot_cover`` mirror ``HNSW.finalize``: under
         ``"cover"`` (default) each shard's structural picks are capped at
         ``1 - pivot_cover`` of the budget and the rest are k-center
-        coverage picks (:meth:`_cover_fill_sharded`)."""
+        coverage picks (:meth:`_cover_fill_sharded`).
+
+        ``pivot_shortlist=T`` also builds, on each shard's device, each of
+        its pivots' top-T nearest live rows (``models.hnsw._build_shortlist``;
+        local ids, -1 pads, a pad pivot's row all -1) and their packed
+        rows, and serving takes the probed route
+        (:func:`sharded_query_probe_packed`, ``serve_probes`` pivots probed
+        per query)."""
         if self._stacked is None:
             raise ValueError("index is empty: call insert_bulk first")
+        self._packed = self._shortlist = None
+        self._pack_n = -1
         if pivots <= 0:
-            self._packed = None
-            self._pack_n = -1
             return self
         st = self._stacked
         S = self.n_shards
@@ -697,6 +757,18 @@ class ShardedHNSW:
             vec = dequantize(st["codes"][s][safe], st["scales"][s][safe])
             pid_s.append(ids)
             pvecs_s.append(torch.where((ids >= 0)[:, None], vec, 0.0))
+        if pivot_shortlist > 0:
+            sl_s, slp_s = [], []
+            for s in range(S):
+                k = int(self._counts[s])
+                codes, scales = st["codes"][s], st["scales"][s]
+                sl = _build_shortlist(pvecs_s[s], codes[:k], scales[:k],
+                                      int(pivot_shortlist))
+                # -1 pads (adjacency's), for pad pivots and past k rows
+                sl = torch.where((pid_s[s] >= 0)[:, None] & (sl < k), sl, -1)
+                sl_s.append(sl)
+                slp_s.append(pack_layer(sl, codes, scales))
+            self._shortlist = (sl_s, slp_s)
         self._packed = (packed_s, pid_s, pvecs_s)
         self._pack_n = len(self)
         self.serve_expand = int(expand)
@@ -815,26 +887,46 @@ class ShardedHNSW:
 
     # -- query -------------------------------------------------------------
 
+    def serving_route(self) -> str:
+        """The ``ann_batch`` branch the index serves through now, by
+        ``HNSW.serving_route``'s names: ``"probe_packed"`` (pivot seeds and
+        the probed shortlists, packed rows), ``"seeded"`` (pivot seeds,
+        packed rows) while the pack from :meth:`finalize` is fresh, else
+        ``"plain"`` (hierarchical descent, plain gathers). An insert makes
+        the pack stale until :meth:`finalize`."""
+        if self._packed is None or self._pack_n != len(self):
+            return "plain"
+        return "probe_packed" if self._shortlist is not None else "seeded"
+
     def ann_batch(self, queries, n: int, ef: int, max_iters: int | None = None):
         """Batched sharded query: (distances [B, n], global ids [B, n]) as
-        numpy arrays; pivot-seeded while the pack from :meth:`finalize` is
-        fresh, the plain hierarchical search otherwise."""
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        ef = max(ef, n)
-        if max_iters is None:
-            max_iters = 2 * ef + 16
-        x = torch.from_numpy(queries).to(self.mesh.data_devices[0])
-        q = dequantize(*quantize(x))
-        st = self._stacked
-        if self._packed is not None and self._pack_n == len(self):
-            packed_s, pid_s, pvecs_s = self._packed
-            d, i = sharded_query_seeded(self.mesh, packed_s, pid_s, pvecs_s,
-                                        st["gids"], q, ef, n, max_iters,
-                                        expand_e=self.serve_expand)
-        else:
-            d, i = sharded_query(self.mesh, st["adjs"], st["codes"], st["scales"],
-                                 st["gids"], st["eps"], q, ef, n, max_iters)
-        return d.cpu().numpy(), i.cpu().numpy()
+        numpy arrays, through the branch :meth:`serving_route` names. The
+        answers are read back once, after the merge (span
+        ``hnsw.ann_batch`` on the data device)."""
+        dev = self.mesh.data_devices[0]
+        with span("hnsw.ann_batch", device=dev):
+            route = self.serving_route()
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            ef = max(ef, n)
+            if max_iters is None:
+                max_iters = 2 * ef + 16
+            q = dequantize(*quantize(torch.from_numpy(queries).to(dev)))
+            st = self._stacked
+            if route == "plain":
+                d, i = sharded_query(self.mesh, st["adjs"], st["codes"],
+                                     st["scales"], st["gids"], st["eps"], q, ef,
+                                     n, max_iters)
+            elif route == "seeded":
+                d, i = sharded_query_seeded(self.mesh, *self._packed, st["gids"],
+                                            q, ef, n, max_iters,
+                                            expand_e=self.serve_expand)
+            else:
+                sl_s, slp_s = self._shortlist
+                d, i = sharded_query_probe_packed(
+                    self.mesh, *self._packed, slp_s, sl_s[0].shape[1],
+                    st["gids"], q, ef, n, max_iters, self.serve_probes,
+                    expand_e=self.serve_expand)
+            return d.cpu().numpy(), i.cpu().numpy()
 
 
 def _scrub_stacked(a: torch.Tensor, rem_edges: torch.Tensor,
