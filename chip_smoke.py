@@ -44,7 +44,8 @@ Phases, one line each with its time:
    recall@10 >= 0.99 for the probe-packed route (through ``ann_batch``;
    it must clear one), the narrow probe route and the plain seeded
    route, each route's QPS over 32,768 queries and bytes/point, one
-   probed batch by stage in CUDA events; then ``refine(rounds=1)``, its
+   probed batch by stage in CUDA events (seeds, the probe kernel K4,
+   the beam); then ``refine(rounds=1)``, its
    seconds and the seeded route's recall at the first rungs before and
    after;
 8. on the cluster path's index: ``finalize(expand=4)`` beside E=1 at the
@@ -133,7 +134,13 @@ on the same card inputs at the cluster path's shape (32,768 queries at the
 chosen rung), and again at the probed path's (its merged entries, its
 rung): d2 within 1e-6 * d2 + 1e-7 * (|q|^2 + |x|^2), ids equal but for
 near-ties inside that bound, and at most 1 in 4,096 rows apart (all
-counted). K3's launches are counted on every path. It prints the kernels' JSON
+counted). K3's launches are counted on every path. On the probed path K4
+(``ops.probe.probe_packed``, a query chunk's probe stage in one launch)
+against its plain version ``search._probe_stage`` on the same seeds, each
+in its own path's query chunks, at the chosen rung's ef and at the probed
+cells' ef 384, to the same bound, each row beyond it differing only by
+ids at the pool's s-th key (counted); K4's launches are counted on the
+route's ladder and QPS runs alone. It prints the kernels' JSON
 line (each kernel's time, plain and library times, the least time the
 card could take for the same work, and its launches on each path), then
 as its last line
@@ -174,6 +181,7 @@ LADDER = [(16, 8), (24, 10), (24, 12), (32, 16), (40, 20), (40, 24),
 # the probed path: benchmarks/bench_second_regime.py:43-50,72-86,194-196
 PROBE_PIVOTS, PROBE_COVER, PROBE_T, PROBES, PROBE_NQ_RECALL = (
     32768, 0.5, 256, 36, 1024)
+PROBE_CELLS_EF = 384  # the probed cells' ef, where K4 is held again
 PROBE_LADDER = [(40, 24), (40, 28), (48, 28), (48, 32), (64, 40), (64, 56),
                 (96, 80), (128, 112), (192, 200), (256, 280), (384, 500),
                 (512, 700)]
@@ -229,6 +237,9 @@ K3_REPLACES = "hnsw_rs_tpu/search.py:327"
 # ids equal but for near-ties inside that bound (counted); walks that a
 # near-tie sends apart (counted) at most 1 in K3_APART rows
 K3_RTOL, K3_ATOL, K3_APART = 1e-6, 1e-7, 4096
+# K4 replaces no TPU kernel: the JAX package leaves the probe stage to XLA
+K4_SRC = "hnsw_rs_tpu_torch/csrc/probe_packed.cu"
+K4_REPLACES = "hnsw_rs_tpu/search.py:_top_ef_dedup_oversampled"
 
 
 def phase(name, t0, **kv):
@@ -362,29 +373,22 @@ def k2_check(q, codes, scales, normsq, kd, ki, pd, pi):
     return int(diff.sum()), float(err.max())
 
 
-def k3_check(packed, q, e_d2, e_ids, ef, mi, codes, scales, label):
-    """Holds the beam kernel (``ops.beam.beam_packed``) to its plain
-    version (``search._search_layer_packed_loop``) on the same card
-    inputs, times both and bounds the kernel by the row bytes of the
-    expansions it tallied. Returns a dict for the kernels line."""
-    from hnsw_rs_tpu_torch import search
-    from hnsw_rs_tpu_torch.ops import beam
+def near_ties(q, codes, scales, pd2, pids, kd2, kids):
+    """Holds a kernel's sorted (d2, ids) rows to its plain version's: d2
+    within K3_RTOL * d2 + K3_ATOL * (|q|^2 + |x|^2), ids equal but for
+    near-ties inside that bound: where the ids of a slot differ, the plain
+    row's own d2 of the kernel's id (a seed's is the matmul form's; an id
+    the plain row lacks is scored here) lies within it of the slot's.
+    Returns (near-tie slots, the rows apart, max abs d2 error where the ids
+    agree)."""
     from hnsw_rs_tpu_torch.ops.quant import dequantize
     from hnsw_rs_tpu_torch.ops.topk import PAD_ID
 
-    b, d = q.shape
-    cap = packed.shape[1] // (d + 12)
-    ring = search._default_ring(cap, 1)
-    tally = torch.zeros(1 + 2 * cap, dtype=torch.int64, device=q.device)
-    kd2, kids, iters = beam.beam_packed(packed, q, e_d2, e_ids, ef, mi, ring,
-                                        None, tally)
-    pd2, pids = search._search_layer_packed_loop(packed, q, e_d2, e_ids, ef, mi)
-    torch.cuda.synchronize()
-    ties = apart = 0
+    ties, apart = 0, []
     err = 0.0
-    for lo in range(0, b, 1024):
-        d2, ids = pd2[lo:lo + 1024], pids[lo:lo + 1024]
-        kd, ki, qq = kd2[lo:lo + 1024], kids[lo:lo + 1024], q[lo:lo + 1024]
+    for lo in range(0, q.shape[0], 256):
+        d2, ids = pd2[lo:lo + 256], pids[lo:lo + 256]
+        kd, ki, qq = kd2[lo:lo + 256], kids[lo:lo + 256], q[lo:lo + 256]
         real = ids != PAD_ID
         safe = torch.where(real, ids, 0).long()
         x = dequantize(codes[safe], scales[safe])
@@ -395,12 +399,90 @@ def k3_check(packed, q, e_d2, e_ids, ef, mi, codes, scales, label):
         diff = ki != ids
         safe_k = torch.where(ki != PAD_ID, ki, 0).long()
         xk = dequantize(codes[safe_k], scales[safe_k])
-        tie = close & ((((qq[:, None, :] - xk) ** 2).sum(-1) - d2).abs() <= tol)
+        same_id = ki[:, :, None] == ids[:, None, :]
+        own = torch.where(same_id, d2[:, None, :], float("inf")).amin(-1)
+        ref = torch.where(same_id.any(-1), own,
+                          ((qq[:, None, :] - xk) ** 2).sum(-1))
+        tie = close & ((ref - d2).abs() <= tol)
         ties += int(diff.sum())
-        apart += int((~close | (diff & ~tie)).any(1).sum())
+        bad = (~close | (diff & ~tie)).any(1)
+        apart += (torch.nonzero(bad).flatten() + lo).tolist()
         same = ~diff & real
         if bool(same.any()):
             err = max(err, float((kd - d2).abs()[same].max()))
+    return ties, apart, err
+
+
+def off_the_s_key(sl_pack, t, q, e_d2, e_ids, pos, ef, probes, codes, scales,
+                  pd2, pids, kd2, kids, rows):
+    """Of K4's rows apart from its plain version, those that a distance
+    moved across the pool's s-th key (s = min(4 * ef, pool width)) by its
+    order of summation does not explain: rows whose ids differ as sets by
+    more than ids whose plain pool d2 lies within ``near_ties``' bound of
+    that key, whose common ids' d2 differ beyond it, or whose kernel row is
+    unsorted or repeats an id. Such a move changes
+    which distinct ids survive the oversampled reduce (the duplicates of
+    one id count toward s), so a row can gain or lose its last survivor.
+    Returns those rows."""
+    from hnsw_rs_tpu_torch import search
+    from hnsw_rs_tpu_torch.ops.quant import dequantize
+    from hnsw_rs_tpu_torch.ops.topk import PAD_ID
+
+    if not rows:
+        return []
+    r = torch.tensor(rows, device=q.device)
+    qr, d = q[r], q.shape[1]
+    pool_d2, pool_ids = [e_d2[r]], [e_ids[r]]
+    for i in range(min(probes, pos.shape[1])):
+        d2_i, ids_i = search._score_probe_packed(sl_pack, t, d, qr, pos[r, i])
+        pool_d2.append(torch.where(ids_i >= 0, d2_i, float("inf")))
+        pool_ids.append(torch.where(ids_i >= 0, ids_i, PAD_ID))
+    pool_d2, pool_ids = torch.cat(pool_d2, 1), torch.cat(pool_ids, 1)
+    key = pool_d2.kthvalue(min(4 * ef, pool_d2.shape[1]), dim=1).values.tolist()
+    qq = (qr * qr).sum(-1).tolist()
+    left = []
+    for j, row in enumerate(rows):
+        plain = {i: v for i, v in zip(pids[row].tolist(), pd2[row].tolist())
+                 if i != PAD_ID}
+        kern = {i: v for i, v in zip(kids[row].tolist(), kd2[row].tolist())
+                if i != PAD_ID}
+        ids = sorted(set(plain) | set(kern))
+        x = dequantize(*(a[torch.tensor(ids, device=q.device).long()]
+                         for a in (codes, scales)))
+        xx = dict(zip(ids, (x * x).sum(-1).tolist()))
+        krow = kd2[row]
+        ok = (bool((krow[1:] >= krow[:-1]).all())
+              and len(kern) == int((kids[row] != PAD_ID).sum()))
+        for i in ids:
+            if i in plain and i in kern:
+                ok &= abs(kern[i] - plain[i]) <= (K3_RTOL * plain[i]
+                                                  + K3_ATOL * (qq[j] + xx[i]))
+            else:
+                m = float(pool_d2[j][pool_ids[j] == i].min())
+                ok &= abs(m - key[j]) <= K3_RTOL * key[j] + K3_ATOL * (qq[j] + xx[i])
+        if not ok:
+            left.append(row)
+    return left
+
+
+def k3_check(packed, q, e_d2, e_ids, ef, mi, codes, scales, label):
+    """Holds the beam kernel (``ops.beam.beam_packed``) to its plain
+    version (``search._search_layer_packed_loop``) on the same card
+    inputs, times both and bounds the kernel by the row bytes of the
+    expansions it tallied. Returns a dict for the kernels line."""
+    from hnsw_rs_tpu_torch import search
+    from hnsw_rs_tpu_torch.ops import beam
+
+    b, d = q.shape
+    cap = packed.shape[1] // (d + 12)
+    ring = search._default_ring(cap, 1)
+    tally = torch.zeros(1 + 2 * cap, dtype=torch.int64, device=q.device)
+    kd2, kids, iters = beam.beam_packed(packed, q, e_d2, e_ids, ef, mi, ring,
+                                        None, tally)
+    pd2, pids = search._search_layer_packed_loop(packed, q, e_d2, e_ids, ef, mi)
+    torch.cuda.synchronize()
+    ties, apart, err = near_ties(q, codes, scales, pd2, pids, kd2, kids)
+    apart = len(apart)
     if apart > b // K3_APART:
         raise AssertionError(f"beam kernel ({label}): {apart} of {b} rows apart "
                              "from the plain loop")
@@ -414,6 +496,56 @@ def k3_check(packed, q, e_d2, e_ids, ef, mi, codes, scales, label):
             "near_tie_slots": ties, "rows_apart": apart, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": nbytes / MEM_BPS * 1e3}
+
+
+def k4_check(sl_pack, t, piv_ids, piv_vecs, q, ef, probes, codes, scales):
+    """Holds the probe kernel (``ops.probe.probe_packed``) to its plain
+    version (``search._probe_stage``) on the same card inputs and seeds,
+    each in the query chunks its own path takes: ``near_ties``' bound, and
+    each row beyond it explained by a distance at the pool's s-th key
+    (``off_the_s_key``; counted); times both and bounds the kernel by the
+    shortlist rows it gathers. Returns a dict for the kernels line."""
+    from hnsw_rs_tpu_torch import search
+    from hnsw_rs_tpu_torch.ops import probe
+
+    b, d = q.shape
+    p = int(piv_ids.shape[0])
+
+    def chunks(kernel):
+        step = search._query_chunk(b, search._probe_bytes_per_query(
+            t, d, p, ef, probes, packed=True, kernel=kernel), q.device)
+        return [slice(lo, lo + step) for lo in range(0, b, step)]
+
+    k_chunks, p_chunks = chunks(True), chunks(False)
+    e_d2, e_ids, pos = (torch.cat(x) for x in zip(*[
+        search._pivot_seeds_pos(piv_ids, piv_vecs, q[c], ef) for c in k_chunks]))
+
+    def kernel():
+        return [probe.probe_packed(sl_pack, t, q[c], e_d2[c], e_ids[c], pos[c],
+                                   ef, probes) for c in k_chunks]
+
+    def plain():
+        return [search._probe_stage(
+            lambda qc, pp: search._score_probe_packed(sl_pack, t, d, qc, pp),
+            q[c], e_d2[c], e_ids[c], pos[c], ef, probes) for c in p_chunks]
+
+    kd2, kids = (torch.cat(x) for x in zip(*kernel()))
+    pd2, pids = (torch.cat(x) for x in zip(*plain()))
+    torch.cuda.synchronize()
+    ties, apart, err = near_ties(q, codes, scales, pd2, pids, kd2, kids)
+    left = off_the_s_key(sl_pack, t, q, e_d2, e_ids, pos, ef, probes, codes,
+                         scales, pd2, pids, kd2, kids, apart)
+    if left:
+        raise AssertionError(f"probe kernel at ef {ef}: {len(left)} of {b} rows "
+                             f"apart from the plain stage (rows {left[:8]})")
+    rows = b * min(probes, pos.shape[1])
+    return {"B": b, "d": d, "T": t, "ef": ef, "probes": probes,
+            "launches": len(k_chunks), "plain_chunks": len(p_chunks),
+            "rows_differ": int((kids != pids).any(1).sum()),
+            "near_tie_slots": ties, "rows_at_s_key": len(apart),
+            "rows_apart": len(left), "max_abs_err": err,
+            "ms": cuda_ms(kernel, 5), "plain_ms": cuda_ms(plain, 1),
+            "bound_ms": rows * t * (d + 12) / MEM_BPS * 1e3}
 
 
 def sass_counts(lib):
@@ -467,15 +599,18 @@ def limb_check(limbs, q, fast):
 def probed_path(dev, t0):
     """The probed path at ``benchmarks/bench_second_regime.py``'s
     configuration (heavy-tailed 1M x 96, not cut), then ``refine``.
-    Returns K2's launches on this path, K3's (before its own check) and
-    K3's check at this path's beam."""
+    Returns K2's launches on this path, K3's (before its own check), K3's
+    check at this path's beam, K4's launches on the probe_packed route's
+    ladder and QPS runs, and K4's checks at this path's probe stage (its
+    rung's ef and the probed cells' ef 384)."""
     from hnsw_rs_tpu_torch import FlatIndex, HNSW, search
     from hnsw_rs_tpu_torch.ops import beam as beam_kernel
     from hnsw_rs_tpu_torch.ops import groupmin
+    from hnsw_rs_tpu_torch.ops import probe as probe_kernel
     from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
-    from hnsw_rs_tpu_torch.ops.topk import INF, PAD_ID
     from hnsw_rs_tpu_torch.utils.datasets import synthetic_heavy_tailed
 
+    probe_kernel.probe_packed.launches = 0
     ht = synthetic_heavy_tailed(N, D, n_queries=NQ, seed=42)
     t0 = phase("probe_data", t0, n=N, d=D, queries=NQ)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -542,14 +677,21 @@ def probed_path(dev, t0):
                    recall=f"{rec:.4f}", gate_met=met, qps=f"{qps:.1f}", batch=NQ,
                    reps=reps,
                    bytes_per_point=f"{(base_bytes + extra_bytes[name]) / N:.1f}")
+    # K4's launches are the probe_packed route's alone: the other routes
+    # never launch it, and the staged calls below come after this count
+    k4_launches = probe_kernel.probe_packed.launches
+    if k4_launches < 1:
+        raise AssertionError("the probe_packed route never launched the probe "
+                             "kernel")
 
     # one probed batch of 32,768 by stage, on the stream, in the query
-    # chunks the route itself uses: pivot seeds, probe gather and score,
-    # the merge of the pool, the beam
+    # chunks the route itself uses: pivot seeds, the probe stage (K4, one
+    # launch a chunk), the beam
     ef, mi = chosen["probe_packed"]
     qd = to_q(ht.test)
     step = search._query_chunk(NQ, search._probe_bytes_per_query(
-        PROBE_T, D, int(piv_ids.shape[0]), ef, PROBES, packed=True), dev)
+        PROBE_T, D, int(piv_ids.shape[0]), ef, PROBES, packed=True,
+        kernel=True), dev)
     chunks = [qd[lo:lo + step] for lo in range(0, NQ, step)]
     st = {}
 
@@ -558,27 +700,15 @@ def probed_path(dev, t0):
                        for qc in chunks]
 
     def probe():
-        st["pools"] = []
-        for qc, (e_d2, e_ids, pos) in zip(chunks, st["seeds"]):
-            d2p, idp = [e_d2], [e_ids]
-            for i in range(PROBES):
-                d2_i, ids_i = search._score_probe_packed(sl_pack, PROBE_T, D, qc,
-                                                         pos[:, i])
-                d2p.append(torch.where(ids_i >= 0, d2_i, INF))
-                idp.append(torch.where(ids_i >= 0, ids_i, PAD_ID))
-            st["pools"].append((torch.cat(d2p, dim=1), torch.cat(idp, dim=1)))
-
-    def merge():
-        tops = [search._top_ef_dedup_oversampled(md2, mids, ef)
-                for md2, mids in st["pools"]]
-        st["entry"] = (torch.cat([t[0][:, :ef] for t in tops]),
-                       torch.cat([t[1][:, :ef] for t in tops]))
+        stage = search._packed_probe_stage(sl_pack, PROBE_T, D, ef, PROBES)
+        tops = [stage(qc, *sd) for qc, sd in zip(chunks, st["seeds"])]
+        st["entry"] = (torch.cat([t[0] for t in tops]),
+                       torch.cat([t[1] for t in tops]))
 
     def beam():
         st["beam"] = search.search_layer_packed(packed0, qd, *st["entry"], ef, mi)
 
-    stages = [("seeds_ms", seeds), ("probe_ms", probe), ("merge_ms", merge),
-              ("beam_ms", beam)]
+    stages = [("seeds_ms", seeds), ("probe_ms", probe), ("beam_ms", beam)]
     event_ms(stages)  # warm
     st.clear()
     torch.cuda.empty_cache()
@@ -587,6 +717,13 @@ def probed_path(dev, t0):
         packed0, piv_ids, piv_vecs, sl_pack, PROBE_T, D, qd, ef, K, mi, PROBES)
     if not torch.equal(st["beam"][1][:, :K], want):
         raise AssertionError("the staged probed batch differs from the route")
+    k4 = {"probed": k4_check(sl_pack, PROBE_T, piv_ids, piv_vecs, qd, ef,
+                             PROBES, codes, scales),
+          "cells_ef": k4_check(sl_pack, PROBE_T, piv_ids, piv_vecs, qd,
+                               PROBE_CELLS_EF, PROBES, codes, scales)}
+    for name, check in k4.items():
+        print(f"  probe kernel at the probed shape ({name}):", json.dumps(check),
+              flush=True)
     k3_launches = beam_kernel.beam_packed.launches
     k3 = k3_check(packed0, qd, *st["entry"], ef, mi, codes, scales, "probed")
     print("  beam kernel at the probed shape:", json.dumps(k3), flush=True)
@@ -620,7 +757,7 @@ def probed_path(dev, t0):
           rungs=json.dumps(rungs).replace(" ", ""),
           recall_before=json.dumps([round(r, 4) for r in before]).replace(" ", ""),
           recall_after=json.dumps([round(r, 4) for r in after]).replace(" ", ""))
-    return launches, k3_launches, k3
+    return launches, k3_launches, k3, k4_launches, k4
 
 
 def on_card(*tensors):
@@ -1464,7 +1601,8 @@ def main():
     from hnsw_rs_tpu_torch.utils.datasets import synthetic_clustered
     t0 = phase("device", t0, kind=repr(kind))
 
-    libs = cuda_build.build("group_min", "l2_kernel", "query_limbs", "beam_packed")
+    libs = cuda_build.build("group_min", "l2_kernel", "query_limbs", "beam_packed",
+                            "probe_packed")
     tensor_ops = {}
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1798,7 +1936,8 @@ def main():
     # -- the probed path: heavy-tailed 1M, shortlist probes, refine ---------------
     groupmin.group_min_d2.launches = limbs.query_operands.launches = 0
     beam.beam_packed.launches = 0
-    probe_launches, beam_launches["probe"], k3_probe = probed_path(dev, t0)
+    (probe_launches, beam_launches["probe"], k3_probe, k4_launches,
+     k4_probe) = probed_path(dev, t0)
     limb_launches["probe"] = limbs.query_operands.launches
     if beam_launches["probe"] < 1:
         raise AssertionError("the probed path never launched the beam kernel")
@@ -2060,6 +2199,16 @@ def main():
         "bound_ms": k3_main["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "main_path_launches": beam_launches,
         "shapes": {"cluster": k3_main, "probed": k3_probe},
+    }, {
+        # K4: a query chunk's whole probe stage in one launch
+        "name": "probe_packed", "route": "cuda", "source": K4_SRC,
+        "replaces": K4_REPLACES, "launches": k4_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in k4_probe.values()),
+        "ms": k4_probe["probed"]["ms"], "plain_ms": k4_probe["probed"]["plain_ms"],
+        "bound_ms": k4_probe["probed"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "main_path_launches": {"probe": k4_launches},
+        "shapes": k4_probe,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

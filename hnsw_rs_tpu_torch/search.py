@@ -21,16 +21,21 @@ iteration 0). The JAX package's ``while_loop``s are Python loops here,
 with one host read of the convergence flag per iteration and the same
 iteration bounds; on a CUDA device the packed E=1 beam is instead one
 hand-written kernel per call (``ops/beam.py``, ``csrc/beam_packed.cu``)
-that walks each query to its end. Eager PyTorch fuses nothing, so the
-probe stages run over chunks of queries (:func:`_query_chunk`) where the
-JAX package relies on XLA to keep their temporaries small.
+that walks each query to its end, and the packed probe stage one kernel
+per query chunk (``ops/probe.py``, ``csrc/probe_packed.cu``). Eager
+PyTorch fuses nothing, so the probe stages run over chunks of queries
+(:func:`_query_chunk`) where the JAX package relies on XLA to keep their
+temporaries small.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .ops import beam as beam_kernel
+from .ops import probe as probe_kernel
 from .ops.distance import l2sq
 from .ops.pq import adc_score, adc_score16, pq_lut
 from .ops.quant import dequantize
@@ -592,13 +597,13 @@ def _top_ef_dedup_oversampled(md2: torch.Tensor, mids: torch.Tensor, ef: int):
     return sort_dist_id(md2, mids)
 
 
-def _probe_seeds(score_probe, pivot_ids, pivot_vecs, q, ef: int, probes: int,
+def _probe_seeds(stage, pivot_ids, pivot_vecs, q, ef: int,
                  per_query_bytes: int):
     """The seed stage of the probed routes, over chunks of queries: pivot
-    seeds, each of the ``probes`` nearest pivots' shortlist scored exactly
-    by ``score_probe(q_chunk, pivot_pos [b]) -> (d2 [b, T], ids [b, T])``,
-    the merged pool reduced to the ef best distinct candidates. Returns
-    (d2 [B, ef'], ids [B, ef']) with ef' = min(ef, pool width)."""
+    seeds, then each chunk's probe stage ``stage(q_chunk, e_d2, e_ids,
+    pivot_pos) -> (d2, ids)`` (:func:`_probe_stage` over a route's scorer,
+    or the probe kernel: :func:`_packed_probe_stage`). Returns (d2 [B, ef'],
+    ids [B, ef']) with ef' = min(ef, pool width)."""
     b = q.shape[0]
     step = _query_chunk(b, per_query_bytes, q.device)
     out_d2, out_ids = [], []
@@ -606,16 +611,45 @@ def _probe_seeds(score_probe, pivot_ids, pivot_vecs, q, ef: int, probes: int,
         qc = q[lo:lo + step]
         e_d2, e_ids, pos = _pivot_seeds_pos(pivot_ids, pivot_vecs, qc, ef)
         with span("hnsw.search.probe", device=q.device):
-            d2_parts, id_parts = [e_d2], [e_ids]
-            for i in range(min(probes, pos.shape[1])):
-                d2_i, ids_i = score_probe(qc, pos[:, i])
-                d2_parts.append(torch.where(ids_i >= 0, d2_i, INF))
-                id_parts.append(torch.where(ids_i >= 0, ids_i, PAD_ID))
-            md2, mids = _top_ef_dedup_oversampled(
-                torch.cat(d2_parts, dim=1), torch.cat(id_parts, dim=1), ef)
-            out_d2.append(md2[:, :ef])
-            out_ids.append(mids[:, :ef])
+            md2, mids = stage(qc, e_d2, e_ids, pos)
+            out_d2.append(md2)
+            out_ids.append(mids)
     return torch.cat(out_d2), torch.cat(out_ids)
+
+
+def _probe_stage(score_probe, qc, e_d2, e_ids, pos, ef: int, probes: int):
+    """One chunk's probe stage in plain PyTorch (the probe kernel's plain
+    version): each of the ``probes`` nearest pivots' shortlist scored
+    exactly by ``score_probe(q_chunk, pivot_pos [b]) -> (d2 [b, T], ids
+    [b, T])``, merged with the seeds ``(e_d2, e_ids)`` and reduced to the
+    ef best distinct candidates: (d2 [b, ef'], ids [b, ef'])."""
+    d2_parts, id_parts = [e_d2], [e_ids]
+    for i in range(min(probes, pos.shape[1])):
+        d2_i, ids_i = score_probe(qc, pos[:, i])
+        d2_parts.append(torch.where(ids_i >= 0, d2_i, INF))
+        id_parts.append(torch.where(ids_i >= 0, ids_i, PAD_ID))
+    md2, mids = _top_ef_dedup_oversampled(
+        torch.cat(d2_parts, dim=1), torch.cat(id_parts, dim=1), ef)
+    return md2[:, :ef], mids[:, :ef]
+
+
+def _packed_probe_stage(shortlist_pack, t: int, d: int, ef: int, probes: int):
+    """The packed route's probe stage for :func:`_probe_seeds`: on a CUDA
+    device the probe kernel, one launch a chunk (``ops.probe.probe_packed``:
+    the same seeds up to the order of each distance's sum; past its limits
+    it raises), counted in ``probe.kernel_calls``; elsewhere its plain
+    version, :func:`_probe_stage` over :func:`_score_probe_packed`."""
+    if not shortlist_pack.is_cuda:
+        return functools.partial(
+            _probe_stage, functools.partial(_score_probe_packed, shortlist_pack,
+                                            t, d), ef=ef, probes=probes)
+
+    def kernel(qc, e_d2, e_ids, pos):
+        out = probe_kernel.probe_packed(shortlist_pack, t, qc, e_d2, e_ids,
+                                        pos, ef, probes)
+        count("probe.kernel_calls")
+        return out
+    return kernel
 
 
 _PROBE_CHUNK = 64  # shortlist members scored at once: a [b, 64, d] f32 temp
@@ -651,10 +685,14 @@ def _score_probe_packed(shortlist_pack, t: int, d: int, qc, pos):
 
 
 def _probe_bytes_per_query(t: int, d: int, p: int, ef: int, probes: int,
-                           packed: bool) -> int:
-    """Temporaries of the probed seed stage per query: the gathered row
-    (packed route), the dequantized chunk and its difference, the [P]
-    seed distances, and the merged pool through its copies."""
+                           packed: bool, kernel: bool = False) -> int:
+    """Temporaries of the probed seed stage per query: the [P] seed
+    distances, then on the plain path the gathered row (packed route), the
+    dequantized chunk and its difference and the merged pool through its
+    copies, or with the probe kernel only the seeds, their positions and
+    the kernel's outputs."""
+    if kernel:
+        return p * 8 + ef * 32
     return ((t * (d + 12) if packed else 0) + min(_PROBE_CHUNK, t) * d * 9
             + p * 8 + (ef + probes * t) * 40)
 
@@ -678,8 +716,9 @@ def ann_search_seeded_probe(packed0: torch.Tensor, pivot_ids: torch.Tensor,
     The same exact (d2, id)-ordered beam follows."""
     t = shortlist.shape[1]
     md2, mids = _probe_seeds(
-        lambda qc, pos: _score_probe_narrow(shortlist, codes, scales, qc, pos),
-        pivot_ids, pivot_vecs, q, ef, probes,
+        functools.partial(_probe_stage, functools.partial(
+            _score_probe_narrow, shortlist, codes, scales), ef=ef, probes=probes),
+        pivot_ids, pivot_vecs, q, ef,
         _probe_bytes_per_query(t, q.shape[1], pivot_ids.shape[0], ef, probes,
                                packed=False))
     beam_d2, beam_ids = search_layer_packed(packed0, q, md2, mids, ef,
@@ -698,12 +737,16 @@ def ann_search_seeded_probe_packed(packed0: torch.Tensor,
     (``pack_layer(shortlist, codes, scales)``: the shortlist is
     adjacency-shaped i32[P, T], so the packed layout reuses the beam's
     row format). The same candidates and exact scores from ``probes``
-    wide-row gathers per query instead of ``probes * T`` narrow ones."""
+    wide-row gathers per query instead of ``probes * T`` narrow ones.
+
+    On a CUDA device each query chunk's probe stage is one kernel launch
+    (:func:`_packed_probe_stage`); CPU tensors take its plain version,
+    :func:`_probe_stage`."""
     md2, mids = _probe_seeds(
-        lambda qc, pos: _score_probe_packed(shortlist_pack, t, d, qc, pos),
-        pivot_ids, pivot_vecs, q, ef, probes,
+        _packed_probe_stage(shortlist_pack, t, d, ef, probes),
+        pivot_ids, pivot_vecs, q, ef,
         _probe_bytes_per_query(t, d, pivot_ids.shape[0], ef, probes,
-                               packed=True))
+                               packed=True, kernel=shortlist_pack.is_cuda))
     beam_d2, beam_ids = search_layer_packed(packed0, q, md2, mids, ef,
                                             max_iters, expand_e=expand_e)
     return _top_k(beam_d2, beam_ids, k)

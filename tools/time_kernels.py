@@ -1,7 +1,7 @@
 """Times the port's kernels through their wrappers on one GPU, so that two
 checkouts can be compared in one run on the same card.
 
-    python3 tools/time_kernels.py [--root DIR] [--kernel k2|k1|k3]
+    python3 tools/time_kernels.py [--root DIR] [--kernel k2|k1|k3|k4]
                                   [--batches 1,256] [--n 262144] [--d 96]
 
 ``--root`` is the checkout whose ``hnsw_rs_tpu_torch`` is imported (this
@@ -42,6 +42,23 @@ random pivots. Each line gives ``call_ms`` (CUDA events), ``host_ms``,
 over the kernel's device time) and ``plain_ms``: the plain version
 (``search._search_layer_packed_loop``, the lockstep loop) on the same
 inputs, by CUDA events.
+
+``--kernel k4`` times the probe stage (``ops/probe.probe_packed``) at the
+probed cells' shape instead (``--batches`` and ``--d`` are not read): B
+10,000 queries, P 32,768 pivots, shortlists of T 256, d 96, 36 probes, ef
+384, over ``--n`` points (default 1M for k4) in 1,000 Gaussian clusters,
+each pivot's shortlist 256 random members of its cluster, the seeds
+(``search._pivot_seeds_pos``) made once and given to both versions. The
+line gives ``call_ms``, ``host_ms``, ``device_ms``, ``kernel_device_ms`` and
+``kernels_per_call`` as above, ``rows`` (shortlist rows gathered),
+``bound_ms`` (those rows' bytes over 3.35 TB/s), ``share``, ``plain_ms``:
+the plain version (``search._probe_stage`` over the query chunks the plain
+path takes) on the same seeds, by CUDA events, ``rows_differ``: rows whose
+ids differ between the two, and those differences sorted by
+``chip_smoke.near_ties``' rule (``near_tie_slots``, ``max_abs_err``) and,
+beyond it, ``chip_smoke.off_the_s_key``'s (``rows_at_s_key``: rows whose
+survivors differ by a distance at the pool's s-th key; ``rows_apart``: the
+rest, which make the run exit non-zero).
 
 The first line printed is the card's name and power limit.
 """
@@ -160,14 +177,83 @@ def time_beam(n, seed):
         torch.cuda.empty_cache()
 
 
+def time_probe(n, seed):
+    """The line of ``--kernel k4`` (module docstring)."""
+    from hnsw_rs_tpu_torch import search
+    from hnsw_rs_tpu_torch.ops import cuda_build, probe
+    from hnsw_rs_tpu_torch.ops.quant import dequantize, quantize
+    from chip_smoke import near_ties, off_the_s_key
+
+    dev = torch.device("cuda", 0)
+    cuda_build.build("probe_packed")
+    b, p, t, d, probes, ef, k = 10_000, 32_768, 256, 96, 36, 384, 1000
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cent = torch.rand((k, d), generator=g, device=dev)
+    lab = torch.randint(0, k, (n,), generator=g, device=dev)
+    codes, scales = quantize(cent[lab] + 0.05 * torch.randn(
+        (n, d), generator=g, device=dev))
+    order = torch.argsort(lab)
+    size = torch.bincount(lab, minlength=k)
+    start = torch.cumsum(size, 0) - size
+    piv = torch.randint(0, n, (p,), generator=g, device=dev)
+    pick = (torch.rand((p, t), generator=g, device=dev)
+            * size[lab[piv]][:, None]).long() + start[lab[piv]][:, None]
+    pack = search.pack_layer(order[pick].int(), codes, scales)
+    pvecs = dequantize(codes[piv], scales[piv])
+    qlab = torch.randint(0, k, (b,), generator=g, device=dev)
+    q = dequantize(*quantize(cent[qlab] + 0.05 * torch.randn(
+        (b, d), generator=g, device=dev)))
+    del order, pick, lab
+    e_d2, e_ids, pos = search._pivot_seeds_pos(piv.int(), pvecs, q, ef)
+
+    def call():
+        return probe.probe_packed(pack, t, q, e_d2, e_ids, pos, ef, probes)
+
+    step = search._query_chunk(b, search._probe_bytes_per_query(
+        t, d, p, ef, probes, packed=True), dev)
+
+    def plain():
+        def score(qc, pp):
+            return search._score_probe_packed(pack, t, d, qc, pp)
+        outs = [search._probe_stage(score, q[lo:lo + step], e_d2[lo:lo + step],
+                                    e_ids[lo:lo + step], pos[lo:lo + step],
+                                    ef, probes) for lo in range(0, b, step)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    call_ms, host_ms = events_ms(call, 20)
+    dev_ms, kern_ms, per_call = profiled(call, 20, ("probe_kernel",))
+    plain_ms = events_ms(plain, 2)[0]
+    kd2, kids = call()
+    pd2, pids = plain()
+    rows_differ = int((kids != pids).any(1).sum())
+    ties, at_key, err = near_ties(q, codes, scales, pd2, pids, kd2, kids)
+    apart = off_the_s_key(pack, t, q, e_d2, e_ids, pos, ef, probes, codes,
+                          scales, pd2, pids, kd2, kids, at_key)
+    rows = b * min(probes, pos.shape[1])
+    bound_ms = rows * t * (d + 12) / 3.35e12 * 1e3
+    share = (bound_ms / kern_ms if isinstance(kern_ms, float) and kern_ms
+             else "not measured")
+    print(json.dumps({
+        "kernel": "k4", "B": b, "N": n, "P": p, "T": t, "d": d,
+        "probes": probes, "ef": ef, "rows": rows, "call_ms": call_ms,
+        "host_ms": host_ms, "device_ms": dev_ms, "kernel_device_ms": kern_ms,
+        "kernels_per_call": per_call, "bound_ms": bound_ms, "share": share,
+        "plain_ms": plain_ms, "plain_chunk": step, "rows_differ": rows_differ,
+        "near_tie_slots": ties, "rows_at_s_key": len(at_key) - len(apart),
+        "rows_apart": len(apart), "max_abs_err": err}), flush=True)
+    if apart:
+        raise SystemExit(f"probe kernel: {len(apart)} of {b} rows apart from "
+                         "the plain stage")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--kernel", choices=("k2", "k1", "k3"), default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k1", "k3", "k4"), default="k2")
     ap.add_argument("--batches", default="1,256")
     ap.add_argument("--n", type=int, default=None,
-                    help="points (default 262,144; 1,000,000 for k3)")
+                    help="points (default 262,144; 1,000,000 for k3, k4)")
     ap.add_argument("--d", type=int, default=96)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -181,6 +267,8 @@ def main():
     sys.path.insert(0, root)
     if args.kernel == "k3":
         return time_beam(args.n or 1_000_000, args.seed)
+    if args.kernel == "k4":
+        return time_probe(args.n or 1_000_000, args.seed)
     args.n = args.n or 262_144
     from hnsw_rs_tpu_torch.ops import cuda_build, groupmin, l2_kernel
     from hnsw_rs_tpu_torch.ops.distance import point_normsq
